@@ -8,16 +8,22 @@ Phases (any failure ends the run with a nonzero exit code):
 1. print the card's name and power limit; build every CUDA kernel of the
    package from its sources;
 2. hold each kernel against its plain torch version on the card, exactly,
-   at TPC-H Q1's shape and at the edges of its domain;
+   under uniform gids and all rows in one group, at G in {2, 12, 13, 128},
+   L in {1, 17, 18}, a ragged n, tensors off a 16-byte boundary, and the
+   extremes of its domain;
 3. register TPC-H lineitem at SF10 on the card (8 splits of 2^23 rows) in
-   both money schemas and run, with ``narrow_lanes`` on, Q1 and Q6 over
+   both money schemas, hold the kernels against their plain versions on
+   Q1's gids of split 0, and run, with ``narrow_lanes`` on, Q1 and Q6 over
    decimal cents and Q1 over DOUBLE money through ``run_plan``; compare
    each result with a numpy oracle computed on the host from the same
    arrays (decimal results exactly in int64, DOUBLE ones to rtol=1e-9) and
    check that the kernels' launch counters rose once per split;
 4. time each query (median of 5 warm runs) and each kernel at Q1's shape
-   beside its plain version, one ``index_add_`` over the same bins, and
-   its bound (bytes moved / 3.35 TB/s);
+   on Q1's gids of split 0 and at G = 128 on uniform gids: ``ms`` is a
+   call from Python between CUDA events, ``device_ms`` the device time of
+   a call from CUDA graph replay (no host cost), beside its plain
+   version, one ``index_add_`` over the same bins, and its bound (bytes
+   moved / 3.35 TB/s);
 5. print the kernels as one JSON line, the card line, and last the
    device line ``{"ok": true, "device": {...}}``.
 
@@ -84,6 +90,32 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    replayed 3 times between CUDA events (no host overhead)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def device_breakdown(fn, label: str, wall: float, card: str) -> None:
     """One profiled run of ``fn``: device time by kernel (top 8) and the
     device busy share of the unprofiled median wall. Only the CUDA kernel
@@ -129,48 +161,106 @@ def wall_ms(fn, reps: int = 5) -> float:
 
 # --------------------------------------------------------- kernels
 
-def kernel_inputs(n: int, L: int, G: int, seed: int):
-    """gids skewed like Q1's (most rows in 4 groups) with sentinels, and
-    int32 values spanning the domain, every 7th at +-(2^31 - 1)."""
+def kernel_values(n: int, L: int, seed: int):
+    """(L, n) int32 values spanning the domain, distinct in every lane and
+    row, every 7th at +-(2^31 - 1)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    heavy = min(G, 4)
-    w = torch.full((G + 1,), 0.02 / max(G + 1 - heavy, 1), device="cuda")
-    w[:heavy] = 0.98 / heavy
-    gids = torch.multinomial(w, n, replacement=True,
-                             generator=g).to(torch.int32)
-    gids[::97] = -1
     top = 2 ** 31 - 1
     vals = torch.randint(-top, top, (L, n), generator=g, device="cuda",
                          dtype=torch.int64).to(torch.int32)
     vals[:, ::7] = top
     vals[:, 3::7] = -top
-    return gids, vals.contiguous()
+    return vals.contiguous()
+
+
+def kernel_gids(mix: str, n: int, G: int, seed: int):
+    """``uniform``: gids over [-3, G] (negatives and G are sentinels);
+    ``zero``: every row in group 0."""
+    import torch
+
+    if mix == "zero":
+        return torch.zeros(n, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(-3, G + 1, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+
+
+def check_one(gs, gids, vals, G: int, what: str) -> None:
+    """B2 on all lanes and B1 on lane 0 equal to their plain versions."""
+    import torch
+
+    got = gs.grouped_multi_sum_i32(gids, vals, G)
+    torch.cuda.synchronize()
+    check(torch.equal(got, gs.grouped_multi_sum_i32_plain(gids, vals, G)),
+          f"B2 differs from plain: {what}")
+    v0 = vals[0].contiguous()
+    got1 = gs.grouped_sum_i32(gids, v0, G)
+    torch.cuda.synchronize()
+    check(torch.equal(got1, gs.grouped_sum_i32_plain(gids, v0, G)),
+          f"B1 differs from plain: {what}")
 
 
 def check_kernels(gs) -> None:
+    """Exact equality under uniform gids (ragged n = 2^23 - 13, which the
+    wrapper pads to whole quads of rows) and all rows in group 0
+    (n = 2^23), at G in {2, 12, 13, 128} and L in {1, 17, 18}; then
+    tensors that start 4 bytes past a 16-byte boundary (padded too); then
+    the extremes, every value +(2^31 - 1) or every value -(2^31 - 1) in
+    one group over a whole split."""
     import torch
 
-    for G in (12, 2, 128):
-        gids, vals = kernel_inputs(SPLIT_ROWS, 17, G, G)
-        got = gs.grouped_multi_sum_i32(gids, vals, G)
-        want = gs.grouped_multi_sum_i32_plain(gids, vals, G)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"B2 differs from plain at G={G}")
-        got1 = gs.grouped_sum_i32(gids, vals[0].contiguous(), G)
-        want1 = gs.grouped_sum_i32_plain(gids, vals[0].contiguous(), G)
-        torch.cuda.synchronize()
-        check(torch.equal(got1, want1), f"B1 differs from plain at G={G}")
-        log(f"kernel check G={G}: B2 (L=17) and B1 (L=1) equal to plain "
-            f"at n={SPLIT_ROWS}")
-
-
-def time_kernel(gs, name: str, L: int, G: int) -> dict:
-    import torch
-
-    gids, vals = kernel_inputs(SPLIT_ROWS, L, G, 7)
+    for mix, n in (("uniform", SPLIT_ROWS - 13), ("zero", SPLIT_ROWS)):
+        for G in (2, 12, 13, 128):
+            gids = kernel_gids(mix, n, G, G)
+            for L in (1, 17, 18):
+                vals = kernel_values(n, L, 100 * G + L)
+                check_one(gs, gids, vals, G, f"{mix} gids, n={n} L={L} G={G}")
+            log(f"kernel check {mix} gids G={G}: B2 (L=1, 17, 18) and B1 "
+                f"equal to plain at n={n}")
     n = SPLIT_ROWS
+    gids = kernel_gids("uniform", n + 1, 12, 5)[1:]
+    vals = kernel_values(17 * n + 1, 1, 5)[0, 1:].view(17, n)
+    check_one(gs, gids, vals, 12, "tensors off a 16-byte boundary")
+    log(f"kernel check misaligned: gids and lanes 4 bytes past a 16-byte "
+        f"boundary, n={n} L=17 and L=1, G=12, equal to plain")
+    del gids, vals
+    gids = kernel_gids("zero", SPLIT_ROWS, 12, 0)
+    for v in (2 ** 31 - 1, -(2 ** 31 - 1)):
+        vals = torch.full((17, SPLIT_ROWS), v, dtype=torch.int32,
+                          device="cuda")
+        check_one(gs, gids, vals, 12, f"every value {v} in group 0")
+    log(f"kernel check extremes: all +-(2^31 - 1) in one group over "
+        f"n={SPLIT_ROWS}, L=17 and L=1, equal to plain")
+
+
+def q1_split0_gids(cols):
+    """Q1's group codes over split 0 of lineitem, as its aggregation makes
+    them: rf + 4 ls (radices |dict| + 1), sentinel 12 where the l_shipdate
+    filter drops the row."""
+    import torch
+
+    ship = cols["l_shipdate"][:SPLIT_ROWS].astype(np.int64)
+    gid = cols["l_returnflag"][:SPLIT_ROWS] + 4 * cols["l_linestatus"][
+        :SPLIT_ROWS]
+    gid = np.where(ship <= SHIP_Q1, gid, 12).astype(np.int32)
+    return torch.from_numpy(gid).cuda()
+
+
+def check_real_gids(gs, gids) -> None:
+    for L in (1, 17, 18):
+        vals = kernel_values(gids.shape[0], L, 7 + L)
+        check_one(gs, gids, vals, 12, f"Q1's gids L={L}")
+    log(f"kernel check Q1's gids (split 0, G=12): B2 (L=1, 17, 18) and B1 "
+        f"equal to plain at n={gids.shape[0]}")
+
+
+def time_kernel(gs, name: str, gids, L: int, G: int) -> dict:
+    import torch
+
+    n = gids.shape[0]
+    vals = kernel_values(n, L, 7)
     if L == 1:
         v1 = vals[0].contiguous()
         kern = lambda: gs.grouped_sum_i32(gids, v1, G)          # noqa: E731
@@ -187,15 +277,19 @@ def time_kernel(gs, name: str, L: int, G: int) -> dict:
     out = torch.zeros((L, G + 1), dtype=torch.int64, device="cuda")
     lib = lambda: out.index_add_(1, g64, v64)                   # noqa: E731
     ms = cuda_ms(kern)
+    device_ms = graph_ms(kern)
     plain_ms = cuda_ms(plain)
     library_ms = cuda_ms(lib)
     # bytes: gids and each lane read once, the (L, G) int64 sums written
-    # once. The kernel does one integer add per 4-byte value read, and
-    # 4 bytes at 3.35 TB/s take longer than one add at the CUDA cores'
-    # 67 Tops/s, so the bytes bound the work.
+    # once. The function's own work is one integer add per 4-byte value
+    # read, and 4 bytes at 3.35 TB/s take longer than one add at the CUDA
+    # cores' 67 Tops/s, so the bytes bound it. (The kernel's int8 one-hot
+    # products are further below the bytes: 2.4 M mma.m16n8k32 per 2^23
+    # rows at Q1's shape, 0.02 ms at 1979 Tops/s.)
     bytes_moved = 4 * n + 4 * L * n + 8 * L * G
-    return {"name": name, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "max_abs_err": err,
+    return {"name": name, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": err,
             "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "shape": {"n": n, "L": L, "G": G}}
 
@@ -332,6 +426,8 @@ def main() -> int:
         f"splits, {(time.perf_counter() - t0):.3f} s")
     rows_q1 = q1_oracle(cols, dicts)
     rev6 = q6_oracle(cols)
+    real_gids = q1_split0_gids(cols)
+    check_real_gids(gs, real_gids)
 
     gs.reset_launches()
     got = run_plan(tpch_plan(1))
@@ -383,25 +479,34 @@ def main() -> int:
     for k, v in times.items():
         log(f"time {k}: {v} ms (median of 5 warm runs, SF{SF}, "
             f"{splits} splits) on {card}")
-    b2 = time_kernel(gs, "grouped_multi_sum_i32", 17, 12)
-    b1 = time_kernel(gs, "grouped_sum_i32", 1, 12)
-    for k in (b2, b1):
-        log(f"time {k['name']} {k['shape']}: kernel {k['ms']} ms, plain "
-            f"{k['plain_ms']} ms, index_add_ {k['library_ms']} ms, bound "
-            f"{k['bound_ms']} ms ({k['bound_by']}) on {card}")
+    b2 = time_kernel(gs, "grouped_multi_sum_i32", real_gids, 17, 12)
+    b1 = time_kernel(gs, "grouped_sum_i32", real_gids, 1, 12)
+    uniform = kernel_gids("uniform", SPLIT_ROWS, 128, 128)
+    wide = [time_kernel(gs, "grouped_multi_sum_i32", uniform, 17, 128),
+            time_kernel(gs, "grouped_sum_i32", uniform, 1, 128)]
+    for k, gids_name in ((b2, "Q1's gids"), (b1, "Q1's gids"),
+                         (wide[0], "uniform gids"), (wide[1], "uniform gids")):
+        log(f"time {k['name']} {k['shape']} on {gids_name}: kernel "
+            f"{k['ms']} ms a call from Python ({k['device_ms']} ms device "
+            f"time, graph replay), plain {k['plain_ms']} ms, index_add_ "
+            f"{k['library_ms']} ms, bound {k['bound_ms']} ms "
+            f"({k['bound_by']}) on {card}")
+    check(all(k["max_abs_err"] == 0 for k in wide), "kernel error")
 
     # 5. report
     kernels = [
         dict(name="grouped_sum_i32", route="cuda", source=SOURCE,
              replaces="velox_tpu/ops/pallas_agg.py:32",
              launches=qd_counts["grouped_sum_i32"],
-             **{k: b1[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}),
+             **{k: b1[k] for k in ("max_abs_err", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}),
         dict(name="grouped_multi_sum_i32", route="cuda", source=SOURCE,
              replaces="velox_tpu/ops/pallas_agg.py:114",
              launches=q1_counts["grouped_multi_sum_i32"],
-             **{k: b2[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}),
+             **{k: b2[k] for k in ("max_abs_err", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}),
     ]
     check(all(k["max_abs_err"] == 0 for k in kernels), "kernel error")
     print(json.dumps({"kernels": kernels, "query_ms": times}))

@@ -10,8 +10,15 @@ excluded because the reference negates it).
 On a CUDA tensor the wrapper launches the hand-written kernel of
 ``csrc/grouped_sum.cu`` (built with nvcc at first use) or raises; on a
 CPU tensor it runs the plain torch version beside it. Nothing falls back
-from one to the other. Each wrapper counts its kernel launches in
-``launches`` so a run can show that its path went through the kernel.
+from one to the other. The kernel takes any L (it goes through the lanes
+in passes of 19) and needs at most 105 KB of shared memory at any L and
+G <= 128, under the card's 227 KB, so the wrapper checks no size. Its
+bulk copies take whole 16-byte quads of rows, so the wrapper pads an
+input with n % 4 != 0, or one that starts off a 16-byte boundary, with
+sentinel gids and zero values (the engine's splits never need it: their
+capacity is a multiple of 128 rows). Each wrapper counts its kernel
+launches in ``launches`` so a run can show that its path went through
+the kernel.
 """
 
 from __future__ import annotations
@@ -26,13 +33,9 @@ launches: Dict[str, int] = {"grouped_sum_i32": 0,
                             "grouped_multi_sum_i32": 0}
 
 _MAX_GROUPS = 128
-#: static shared-memory limit of a block; the L x G int64 accumulators
-#: of one block must fit
-_SMEM_LIMIT = 48 * 1024
-#: threads per block: ``kThreads`` of csrc/grouped_sum.cu
-_THREADS = 256
-#: resident blocks per SM the grid is sized for
-_BLOCKS_PER_SM = 8
+#: most blocks per SM the kernel's grid can take; the partial-sum scratch
+#: holds this many blocks per SM
+_BLOCKS_PER_SM = 4
 
 
 def reset_launches() -> None:
@@ -70,7 +73,8 @@ def _library():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -80,24 +84,32 @@ def _launch(gids: torch.Tensor, contribs: torch.Tensor, num_groups: int,
     """Run the CUDA kernel on (L, n) contributions; returns (L, G).
     Adds one to ``launches[counter]`` when the kernel was launched."""
     L, n = contribs.shape
-    if 8 * L * num_groups > _SMEM_LIMIT:
-        raise ValueError(
-            f"grouped sum: {L} lanes x {num_groups} groups of int64 "
-            f"accumulators exceed {_SMEM_LIMIT} bytes of shared memory")
-    out = torch.zeros((L, num_groups), dtype=torch.int64,
-                      device=contribs.device)
     if n == 0:
-        return out
+        return torch.zeros((L, num_groups), dtype=torch.int64,
+                           device=contribs.device)
     lib = _library()
-    sms = torch.cuda.get_device_properties(
-        contribs.device).multi_processor_count
-    blocks = min(-(-n // _THREADS), sms * _BLOCKS_PER_SM)
+    device = contribs.device
+    if n % 4 or (gids.data_ptr() | contribs.data_ptr()) % 16:
+        n4 = -(-n // 4) * 4
+        padded = torch.full((n4,), -1, dtype=torch.int32, device=device)
+        padded[:n] = gids
+        gids = padded
+        padded = torch.zeros((L, n4), dtype=torch.int32, device=device)
+        padded[:, :n] = contribs
+        contribs, n = padded, n4
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    # the kernel writes one (L, G) partial per block, at most
+    # _BLOCKS_PER_SM blocks per SM, and reduces them into ``out``
+    max_blocks = sms * _BLOCKS_PER_SM
+    partials = torch.empty((max_blocks, L, num_groups), dtype=torch.int64,
+                           device=device)
+    out = torch.empty((L, num_groups), dtype=torch.int64, device=device)
     # the launch runs on the CUDA runtime's current device
-    with torch.cuda.device(contribs.device):
-        stream = torch.cuda.current_stream(contribs.device).cuda_stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.vt_grouped_sum_i32(
             gids.data_ptr(), contribs.data_ptr(), n, L, num_groups,
-            out.data_ptr(), blocks, stream)
+            partials.data_ptr(), max_blocks, sms, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"grouped_sum kernel launch failed: CUDA error "
                            f"{err}")
