@@ -18,13 +18,23 @@ Phases (any failure ends the run with a nonzero exit code):
    each result with a numpy oracle computed on the host from the same
    arrays (decimal results exactly in int64, DOUBLE ones to rtol=1e-9) and
    check that the kernels' launch counters rose once per split;
-4. time each query (median of 5 warm runs) and each kernel at Q1's shape
+4. register lineitem, orders and customer at SF10 (``register_tpch_tables``)
+   and run Q3 and Q18 through ``run_plan`` with ``optimize_plans`` on
+   (merge joins, streaming aggregation) and off (hash joins, generic
+   aggregation) over decimal cents, with it on once more without kArray
+   join tables (``karray_join_span = 0``: the binary-search and flipped
+   merge probes run), then with it on over DOUBLE money; compare each
+   with a numpy oracle (exact in int64 cents, row order included; DOUBLE
+   to rtol=1e-9) and print each run's host syncs, kernel launches and
+   join probe forms; time the merge probe's two rank forms
+   (``torch.searchsorted``, ``_rank_in_sorted``) at Q3's shape;
+5. time each query (median of 5 warm runs) and each kernel at Q1's shape
    on Q1's gids of split 0 and at G = 128 on uniform gids: ``ms`` is a
    call from Python between CUDA events, ``device_ms`` the device time of
    a call from CUDA graph replay (no host cost), beside its plain
    version, one ``index_add_`` over the same bins, and its bound (bytes
    moved / 3.35 TB/s);
-5. print the kernels as one JSON line, the card line, and last the
+6. print the kernels as one JSON line, the card line, and last the
    device line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository beside it; without either it
@@ -33,6 +43,8 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
 import json
 import statistics
 import subprocess
@@ -49,6 +61,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 RTOL = 1e-9
 SHIP_Q1 = 10471                    # DATE '1998-12-01' - 90 days
 Q6_LO, Q6_HI = 8766, 9131          # 1994-01-01, 1995-01-01
+Q3_DATE = 9204                     # DATE '1995-03-15'
+Q18_MIN_QTY = 30000                # total_qty > 300.0, in cents
 SOURCE = "velox_tpu_torch/csrc/grouped_sum.cu"
 
 
@@ -116,11 +130,11 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
-def device_breakdown(fn, label: str, wall: float, card: str) -> None:
+def device_breakdown(fn, label: str, wall: float, card: str) -> float:
     """One profiled run of ``fn``: device time by kernel (top 8) and the
-    device busy share of the unprofiled median wall. Only the CUDA kernel
-    rows count; the aten operator rows that launched them would count
-    the same time twice."""
+    device busy share of the unprofiled median wall; returns the busy
+    ms. Only the CUDA kernel rows count; the aten operator rows that
+    launched them would count the same time twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -144,6 +158,7 @@ def device_breakdown(fn, label: str, wall: float, card: str) -> None:
         f"(busy share {busy / wall}) on {card}")
     for ms, count, key in rows[:8]:
         log(f"profile {label}:   {ms} ms  x{count}  {key[:90]}")
+    return busy
 
 
 def wall_ms(fn, reps: int = 5) -> float:
@@ -376,6 +391,249 @@ def q6_oracle(cols) -> int:
     return int((cols["l_extendedprice"][m] * d[m]).sum())
 
 
+def _order_runs(tables):
+    """Lineitem row index of each order's first line. The generator makes
+    o_orderkey 1..N and customer keys 1..M, and lineitem ascends on
+    l_orderkey with at least one line an order, so a key is its row + 1
+    and per-order sums are ``np.add.reduceat`` over these starts."""
+    okey = tables["orders"]["o_orderkey"]
+    lkey = tables["lineitem"]["l_orderkey"]
+    check(np.array_equal(okey, np.arange(1, len(okey) + 1)),
+          "o_orderkey is not 1..N")
+    check(np.array_equal(tables["customer"]["c_custkey"], np.arange(
+        1, len(tables["customer"]["c_custkey"]) + 1)), "c_custkey not 1..M")
+    starts = np.flatnonzero(np.diff(lkey, prepend=0))
+    check(len(starts) == len(okey) and np.all(np.diff(lkey) >= 0),
+          "lineitem does not ascend on l_orderkey with every order present")
+    return starts
+
+
+def q3_oracle(tables, dicts, starts):
+    """Q3's 10 rows: exact revenue in scale-4 cents per order with a line
+    shipped after the date, from a BUILDING customer's order placed before
+    it; revenue DESC, o_orderdate, then o_orderkey (the order both plans
+    feed their stable top-N in)."""
+    li, o, c = tables["lineitem"], tables["orders"], tables["customer"]
+    building = dicts["c_mktsegment"].index("BUILDING")
+    odate = o["o_orderdate"].astype(np.int64)
+    order_ok = (odate < Q3_DATE) & (
+        c["c_mktsegment"][o["o_custkey"] - 1] == building)
+    line_ok = ((li["l_shipdate"].astype(np.int64) > Q3_DATE)
+               & order_ok[li["l_orderkey"] - 1])
+    rev = np.where(line_ok, li["l_extendedprice"]
+                   * (100 - li["l_discount"]), 0)
+    rev = np.add.reduceat(rev, starts)
+    live = np.flatnonzero(np.add.reduceat(line_ok.astype(np.int64),
+                                          starts) > 0)
+    top = live[np.lexsort((live, odate[live], -rev[live]))[:10]]
+    return [{"l_orderkey": int(i + 1), "revenue": int(rev[i]),
+             "o_orderdate": int(odate[i]), "o_shippriority":
+             int(o["o_shippriority"][i])} for i in top]
+
+
+def q18_oracle(tables, dicts, starts, by_customer: bool):
+    """Q18's rows: orders whose lines' quantity sums past 300 (30000
+    cents), o_totalprice DESC, o_orderdate, then the order the top-N sees
+    ties in: order key (streaming plan) or customer name and order key
+    (the generic aggregation's key order)."""
+    li, o = tables["lineitem"], tables["orders"]
+    qty = np.add.reduceat(li["l_quantity"], starts)
+    big = np.flatnonzero(qty > Q18_MIN_QTY)
+    ck = o["o_custkey"][big]
+    tp = o["o_totalprice"][big]
+    odate = o["o_orderdate"][big].astype(np.int64)
+    ties = (big, ck) if by_customer else (big,)
+    top = np.lexsort(ties + (odate, -tp))[:100]
+    return [{"c_name": dicts["c_name"][ck[i] - 1], "c_custkey": int(ck[i]),
+             "o_orderkey": int(big[i] + 1), "o_orderdate": int(odate[i]),
+             "o_totalprice": int(tp[i]), "sum_qty": int(qty[big[i]])}
+            for i in top]
+
+
+def check_rows(got, rows, scales, money: str, what: str) -> None:
+    """``got`` (run_plan's dict of lists) equal to the oracle ``rows``,
+    row for row: ``scales`` names the money columns and their cents
+    scale, compared exactly as decimals or to RTOL as DOUBLE; dates are
+    days since 1970-01-01."""
+    names = list(rows[0]) if rows else list(got)
+    check(list(got) == names, f"{what}: columns {list(got)}")
+    n = len(got[names[0]])
+    check(n == len(rows), f"{what}: {n} rows, want {len(rows)}")
+    epoch = datetime.date(1970, 1, 1)
+    for i, row in enumerate(rows):
+        for k, want in row.items():
+            v = got[k][i]
+            if k in scales and money == "double":
+                w = want / 10 ** scales[k]
+                ok = abs(v - w) <= RTOL * abs(w)
+            elif k in scales:
+                ok = int(v.scaleb(scales[k])) == want
+            elif k == "o_orderdate":
+                ok = (v - epoch).days == want
+            else:
+                ok = v == want
+            check(ok, f"{what} {k} row {i}: {v!r}, want {want!r}")
+
+
+Q3_SCALES = {"revenue": 4}
+Q18_SCALES = {"o_totalprice": 2, "sum_qty": 2}
+
+
+@contextlib.contextmanager
+def probe_forms():
+    """Count, over the runs inside, the join probe forms the operators
+    call: the kArray table, the binary search, the flipped merge probe on
+    a raw ascending lane and on a repaired one."""
+    from velox_tpu_torch.exec import operators as ops
+
+    names = {"table": "probe_join_table", "search": "probe_join_index",
+             "merge": "probe_join_index_merge",
+             "repair": "probe_join_index_merge_repair"}
+    counts = dict.fromkeys(names, 0)
+    saved = {k: getattr(ops, n) for k, n in names.items()}
+
+    def counting(k):
+        def call(*args, **kwargs):
+            counts[k] += 1
+            return saved[k](*args, **kwargs)
+        return call
+
+    for k, n in names.items():
+        setattr(ops, n, counting(k))
+    try:
+        yield counts
+    finally:
+        for k, n in names.items():
+            setattr(ops, n, saved[k])
+
+
+def time_rank_forms(tables, card: str) -> dict:
+    """The flipped merge probe ranks every build key into an ascending
+    probe lane, left and right. Time its two forms at the merge join's
+    shape: split 0's l_orderkey (2^23 rows, int32 as the key codec
+    narrows it) against every 10th order key (1.5M, the size of Q3's
+    orders build) and against all 15M. ``searchsorted`` is
+    ``torch.searchsorted``; ``sort`` is ``_rank_in_sorted``, one stable
+    sort of the concatenation with packed int32 keys. Both must give
+    the same ranks."""
+    import torch
+
+    from velox_tpu_torch.ops.join import _rank_in_sorted
+
+    pk = torch.from_numpy(tables["lineitem"]["l_orderkey"][:SPLIT_ROWS]
+                          .astype(np.int32)).cuda()
+    okey = tables["orders"]["o_orderkey"]
+    key_range = (int(okey[0]), int(okey[-1]))
+    out = {}
+    for label, keys in (("1.5M", okey[::10]), ("15M", okey)):
+        bk = torch.from_numpy(keys.astype(np.int32)).cuda()
+
+        def search():
+            return [torch.searchsorted(pk, bk, side=s)
+                    for s in ("left", "right")]
+
+        def sort():
+            return [_rank_in_sorted(pk, bk, s, key_range)
+                    for s in ("left", "right")]
+
+        check(all(torch.equal(a, b) for a, b in zip(search(), sort())),
+              f"rank forms differ at {label} build keys")
+        out[label] = {"searchsorted_ms": cuda_ms(search),
+                      "sort_ms": cuda_ms(sort)}
+        log(f"rank forms, probe 2^23 x build {label} (left and right): "
+            f"searchsorted {out[label]['searchsorted_ms']} ms, sort "
+            f"{out[label]['sort_ms']} ms a call on {card}")
+    return out
+
+
+def run_join_queries(card: str, times: dict) -> dict:
+    """Phase 4: Q3 and Q18 over lineitem, orders and customer at SF10
+    against their oracles, both plan shapes and both money schemas, and
+    the merge plans once more without kArray join tables (so the binary
+    search and the flipped merge probe run); time them and profile them,
+    and time the merge probe's two rank forms. Returns each run's host
+    syncs, B1/B2 launches and probe forms, and the rank forms' times."""
+    import torch
+
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.io.catalog import drop_table, get_table
+    from velox_tpu_torch.io.tpch import register_tpch_tables
+    from velox_tpu_torch.ops import grouped_sum as gs
+    from velox_tpu_torch.tpch import tpch_plan
+    from velox_tpu_torch.utils import syncs
+    from velox_tpu_torch.utils.config import config
+
+    counts = {}
+
+    def run_checked(q: int, money: str, label: str, rows):
+        syncs.reset()
+        gs.reset_launches()
+        with probe_forms() as forms:
+            got = run_plan(tpch_plan(q))
+            torch.cuda.synchronize()
+        counts[label] = {"syncs": syncs.count, **gs.launches,
+                         "probes": forms}
+        check_rows(got, rows, Q3_SCALES if q == 3 else Q18_SCALES, money,
+                   label)
+        log(f"{label}: {len(rows)} rows equal to the oracle; host syncs "
+            f"{syncs.count}, launches {dict(gs.launches)}, probe forms "
+            f"{forms}")
+        return forms
+
+    t0 = time.perf_counter()
+    tables, dicts = register_tpch_tables(SF, SEED, "cents", SPLIT_ROWS,
+                                         device="cuda")
+    sizes = {t: sum(b.num_rows for b in get_table(t).batches)
+             for t in tables}
+    log(f"registered lineitem, orders, customer SF{SF} (cents): {sizes} "
+        f"rows, {(time.perf_counter() - t0):.3f} s")
+    starts = _order_runs(tables)
+    q3_rows = q3_oracle(tables, dicts, starts)
+    q18_rows = {by: q18_oracle(tables, dicts, starts, by)
+                for by in (False, True)}
+    check(len(q3_rows) == 10 and len(q18_rows[False]) > 0,
+          f"oracle sizes {len(q3_rows)}, {len(q18_rows[False])}")
+
+    for optimize in (True, False):
+        config.optimize_plans = optimize
+        plan = "merge+streaming" if optimize else "hash+generic"
+        run_checked(3, "cents", f"Q3 cents {plan}", q3_rows)
+        run_checked(18, "cents", f"Q18 cents {plan}",
+                    q18_rows[not optimize])
+    config.optimize_plans = True
+    span = config.karray_join_span
+    config.karray_join_span = 0
+    try:
+        f3 = run_checked(3, "cents", "Q3 cents merge+streaming, no kArray",
+                         q3_rows)
+        f18 = run_checked(18, "cents", "Q18 cents merge+streaming, no kArray",
+                          q18_rows[False])
+    finally:
+        config.karray_join_span = span
+    check(f3["table"] + f18["table"] == 0 and f3["search"] > 0
+          and f3["merge"] + f18["merge"] > 0,
+          f"no-kArray probe forms: Q3 {f3}, Q18 {f18}")
+    rank_ms = time_rank_forms(tables, card)
+    for q in (3, 18):
+        times[f"q{q}_cents"] = wall_ms(lambda: run_plan(tpch_plan(q)))
+        device_breakdown(lambda: run_plan(tpch_plan(q)), f"q{q}_cents",
+                         times[f"q{q}_cents"], card)
+
+    for t in tables:
+        drop_table(t)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    register_tpch_tables(SF, SEED, "double", SPLIT_ROWS, device="cuda")
+    log(f"registered lineitem, orders, customer SF{SF} (double): "
+        f"{(time.perf_counter() - t0):.3f} s")
+    run_checked(3, "double", "Q3 double merge+streaming", q3_rows)
+    run_checked(18, "double", "Q18 double merge+streaming", q18_rows[False])
+    for t in tables:
+        drop_table(t)
+    torch.cuda.empty_cache()
+    return {"runs": counts, "rank_forms_ms": rank_ms}
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -475,7 +733,10 @@ def main() -> int:
     del cols, rows_q1
     torch.cuda.empty_cache()
 
-    # 4. timings
+    # 4. the joins: Q3 and Q18
+    joins = run_join_queries(card, times)
+
+    # 5. timings
     for k, v in times.items():
         log(f"time {k}: {v} ms (median of 5 warm runs, SF{SF}, "
             f"{splits} splits) on {card}")
@@ -493,7 +754,7 @@ def main() -> int:
             f"({k['bound_by']}) on {card}")
     check(all(k["max_abs_err"] == 0 for k in wide), "kernel error")
 
-    # 5. report
+    # 6. report
     kernels = [
         dict(name="grouped_sum_i32", route="cuda", source=SOURCE,
              replaces="velox_tpu/ops/pallas_agg.py:32",
@@ -509,7 +770,9 @@ def main() -> int:
                                    "library_ms")}),
     ]
     check(all(k["max_abs_err"] == 0 for k in kernels), "kernel error")
-    print(json.dumps({"kernels": kernels, "query_ms": times}))
+    print(json.dumps({"kernels": kernels, "query_ms": times,
+                      "join_query_counts": joins["runs"],
+                      "rank_forms_ms": joins["rank_forms_ms"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Shared set-up of the port's differential tests: one seeded lineitem,
+"""Shared set-up of the port's differential tests: seeded TPC-H tables,
 registered in both packages' catalogs from the same numpy arrays."""
 
 import contextlib
@@ -9,7 +9,9 @@ import pyarrow as pa
 from velox_tpu.io import catalog as jax_catalog
 from velox_tpu.utils.config import config as jax_config
 from velox_tpu_torch.io import catalog as torch_catalog
-from velox_tpu_torch.io.tpch import as_money_schema, lineitem_columns
+from velox_tpu_torch.io.tpch import (
+    as_money_schema, lineitem_columns, tpch_columns,
+)
 from velox_tpu_torch.utils.config import config as torch_config
 
 SF = 0.01
@@ -57,4 +59,31 @@ def lineitem_in_both(narrow: bool, money: str, sf: float = SF,
     finally:
         jax_catalog.drop_table("lineitem")
         torch_catalog.drop_table("lineitem")
+        jax_config.narrow_lanes, torch_config.narrow_lanes = old
+
+
+@contextlib.contextmanager
+def tables_in_both(narrow: bool, money: str, sf: float = SF,
+                   batch_rows: int = BATCH_ROWS):
+    """Register seeded lineitem, orders and customer in both catalogs
+    under ``narrow``; drop every table and restore both configs
+    afterwards. Yields the generated cents columns per table and the
+    dictionaries."""
+    old = (jax_config.narrow_lanes, torch_config.narrow_lanes)
+    jax_config.narrow_lanes = torch_config.narrow_lanes = narrow
+    tables, dictionaries = tpch_columns(sf, SEED)
+    try:
+        for name, columns in tables.items():
+            dicts = {c: v for c, v in dictionaries.items() if c in columns}
+            cols, overrides = as_money_schema(columns, money)
+            torch_catalog.register_columns(
+                name, cols, dicts, batch_rows, overrides, device="cpu")
+            table, overrides = arrow_table(columns, dicts, money)
+            jax_catalog.register_arrow(name, table, batch_rows,
+                                       decimal_overrides=overrides)
+        yield tables, dictionaries
+    finally:
+        for name in tables:
+            jax_catalog.drop_table(name)
+            torch_catalog.drop_table(name)
         jax_config.narrow_lanes, torch_config.narrow_lanes = old

@@ -19,7 +19,8 @@ from velox_tpu_torch.exec.operator import (
     Operator, batch_ranges, eval_dicts, eval_pairs,
 )
 from velox_tpu_torch.exec.operators import (
-    FilterOp, HashAggregationOp, ProjectOp, TableScanOp,
+    FilterOp, HashAggregationOp, ProjectOp, StreamingAggregationOp,
+    TableScanOp,
 )
 from velox_tpu_torch.plan.nodes import AggStep
 
@@ -33,7 +34,10 @@ def maybe_fuse(chain: List[Operator]) -> List[Operator]:
     k = 1
     while k < len(chain) and isinstance(chain[k], (FilterOp, ProjectOp)):
         k += 1
+    # a streaming aggregation keeps its open group between batches and
+    # emits per batch: it stays its own operator
     if (k == len(chain) - 1 and isinstance(chain[-1], HashAggregationOp)
+            and not isinstance(chain[-1], StreamingAggregationOp)
             and chain[-1].step != AggStep.FINAL):
         return [FusedScanAggOp(chain)]
     if k > 1:
@@ -94,6 +98,8 @@ class FusedScanOp(Operator):
         if not self.scan._splits:
             return None
         b = self.scan._splits.popleft().project(self.scan.node.all_columns)
+        for df in self.scan.dynamic_filters:
+            b = b.with_sel(df.filter_sel(b))
         sig = _dict_signature(b)
         hit = self._step_cache.get(sig)
         if hit is None:
@@ -133,7 +139,9 @@ class FusedScanAggOp(Operator):
             return hit
         stages, dicts = _stages(self.scan, self.transforms, batch)
         agg = self.agg
-        mode = agg.decide_mode_dicts({k: dicts.get(k) for k in agg.keys})
+        key_dicts = {k: dicts.get(k) for k in agg.keys}
+        mode = agg.decide_mode_dicts(key_dicts)
+        agg.note_key_dicts(key_dicts)
         agg_fn = (agg.make_array_fn() if mode == "array"
                   else agg.make_generic_fn())
         hit = (stages, agg_fn, mode)

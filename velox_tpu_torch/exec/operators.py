@@ -1,29 +1,46 @@
-"""Relational operators of the ported slice.
+"""Relational operators of the ported slices.
 
-The port of ``TableScanOp``, ``FilterOp``, the scalar part of
-``ProjectOp``, ``HashAggregationOp`` (kArray mode and the keyless generic
-path) and ``OrderByOp`` from the JAX package's ``exec/operators.py``.
-Each runs eagerly on the device its batches live on. Blocking operators
-buffer in plain lists; spill stores wait for a later slice.
+The port of the JAX package's ``exec/operators.py`` for TPC-H Q1, Q3, Q6
+and Q18: ``TableScanOp`` (with pushed dynamic filters), ``FilterOp``, the
+scalar part of ``ProjectOp``, ``HashAggregationOp`` (kArray and the
+generic sort-based mode, SINGLE step), ``StreamingAggregationOp`` (with a
+fused HAVING), ``OrderByOp``, ``TopNOp``, ``LimitOp``, and the hash and
+merge joins (``JoinKeyCodec``, ``JoinBridge``, ``HashBuildOp``,
+``HashProbeOp`` for inner and left-semi joins, ``MergeJoinBuildOp``,
+``MergeJoinProbeOp``). Each runs eagerly on the device its batches live
+on. Blocking operators buffer in plain lists; spill stores wait for a
+later slice. Where a size depends on the data (a join's match total, a
+batch's group count) the operator reads it on the host once, through
+``utils/syncs.py``, which counts every such read.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from velox_tpu_torch import resolve_device
+from velox_tpu_torch.types import BIGINT, BOOLEAN
 from velox_tpu_torch.types.types import TypeKind, row_type
 from velox_tpu_torch.vector.batch import Batch, concat_batches, round_capacity
 from velox_tpu_torch.vector.column import Column, Dictionary
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
 from velox_tpu_torch.functions.aggregates import init_lane, lookup_aggregate
-from velox_tpu_torch.ops.groupby import group_ids_array
-from velox_tpu_torch.ops.sort import sort_indices
-from velox_tpu_torch.plan.nodes import AggregationNode, AggStep
+from velox_tpu_torch.ops.groupby import (
+    SCAN_COMBINE, group_ids_array, group_ids_sorted, segment_scan,
+)
+from velox_tpu_torch.ops.join import (
+    build_join_index, build_join_index_presorted, build_join_table,
+    expand_matches, match_total, probe_join_index,
+    probe_join_index_merge, probe_join_index_merge_repair, probe_join_table,
+    valid_ascending_code,
+)
+from velox_tpu_torch.ops.sort import sort_indices, top_n_indices
+from velox_tpu_torch.plan.nodes import AggregationNode, AggStep, JoinType
+from velox_tpu_torch.utils import syncs
 
 #: string group keys that never saw input keep a (shared, empty)
 #: dictionary so downstream bind-time string work keeps working
@@ -35,6 +52,21 @@ def _key_dict_for(key_dicts, dtype, k):
     if d is None and dtype.is_string:
         return _EMPTY_DICT
     return d
+
+
+def plan_device(node) -> torch.device:
+    """The device of the first table the plan below ``node`` scans: where
+    an operator that saw no batch makes its empty result."""
+    from velox_tpu_torch.io.catalog import get_table
+    from velox_tpu_torch.plan.nodes import TableScanNode
+
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, TableScanNode):
+            return get_table(n.table).batches[0].device
+        stack.extend(reversed(n.sources))
+    return resolve_device(None)
 
 
 def _cols_of(batch: Batch, names) -> Dict[str, Tuple]:
@@ -61,6 +93,10 @@ class TableScanOp(Operator):
                                [tschema.find_child(n) for n in self._allc])
         self._filter = (ExprEvaluator([node.subfilter], fschema)
                         if node.subfilter is not None else None)
+        #: filters a join pushes in when its build side publishes, before
+        #: this scan's first split (velox/exec/HashProbe.cpp:419-444)
+        self.dynamic_filters: List[ExprEvaluator] = []
+        self.fschema = fschema
 
     @property
     def _splits(self) -> collections.deque:
@@ -78,6 +114,8 @@ class TableScanOp(Operator):
         b = self._splits.popleft().project(self._allc)
         if self._filter is not None:
             b = b.with_sel(self._filter.filter_sel(b))
+        for df in self.dynamic_filters:
+            b = b.with_sel(df.filter_sel(b))
         return b.project(self.node.columns)   # drop filter-only columns
 
     def is_finished(self) -> bool:
@@ -144,8 +182,11 @@ class HashAggregationOp(Operator):
     * kArray (all keys dictionary-coded, small product): persistent
       direct-addressed accumulators, one scatter per batch, or one launch
       of the grouped-sum kernel B2 for all-additive integer aggregates;
-    * keyless generic: one-slot partial accumulators per batch, merged
-      once at output.
+    * generic: per batch, a sort-based batch-local grouping
+      (``group_ids_sorted``) and partial accumulators with one slot per
+      row of the batch's capacity (one slot when keyless); at output the
+      partials of every batch are concatenated, grouped again and
+      combined. Groups come out in key order (NULLS LAST).
     """
 
     blocking = True
@@ -219,9 +260,6 @@ class HashAggregationOp(Operator):
                     self._num_groups = prod
                     self._key_dicts = dict(zip(self.keys, dicts))
                     return self._mode
-            raise NotImplementedError(
-                "grouping on keys that are not all dictionary-coded "
-                "(sort-based generic aggregation) is not ported yet")
         self._mode = "generic"
         return self._mode
 
@@ -230,6 +268,7 @@ class HashAggregationOp(Operator):
         self._device = batch.device
         mode = self.decide_mode_dicts({
             k: batch.column(k).dictionary for k in self.keys})
+        self.note_key_dicts(batch)
         cols = _cols_of(batch, self._needed)
         if mode == "array":
             st = self.ensure_array_state(batch.device)
@@ -237,6 +276,17 @@ class HashAggregationOp(Operator):
                 cols, batch.sel, st["accs"], st["seen"])
         else:
             self.push_generic_entry(*self.make_generic_fn()(cols, batch.sel))
+
+    def note_key_dicts(self, batch_or_dicts) -> None:
+        """Remember the first dictionary seen for each string key: the
+        output key columns decode through it."""
+        if isinstance(batch_or_dicts, Batch):
+            batch_or_dicts = {k: batch_or_dicts.column(k).dictionary
+                              for k in self.keys}
+        for k in self.keys:
+            d = batch_or_dicts.get(k)
+            if d is not None:
+                self._key_dicts.setdefault(k, d)
 
     def ensure_array_state(self, device: torch.device) -> dict:
         if self._array_state is None:
@@ -337,23 +387,36 @@ class HashAggregationOp(Operator):
         return [tuple(a) for a in accs_out], seen
 
     def make_generic_fn(self):
-        """Per-batch keyless step: (cols, sel) -> one-slot partials."""
-        if self.keys:
-            raise NotImplementedError(
-                "sort-based generic aggregation is not ported yet")
+        """Per-batch generic step: (cols, sel) -> (group keys, partial
+        lanes, group selection, distinct representatives). Keyless: one
+        slot and no sort; keyed: ``group_ids_sorted`` and one slot per
+        row of the batch's capacity."""
+        keys = self.keys
 
         def fn(cols, sel):
             inputs = self._agg_inputs(cols, sel)
-            gids = torch.where(sel, torch.zeros((), dtype=torch.int32,
-                                                device=sel.device),
-                               torch.ones((), dtype=torch.int32,
-                                          device=sel.device))
-            group_sel = torch.any(sel)[None]
+            if not keys:
+                gids = torch.where(sel, torch.zeros((), dtype=torch.int32,
+                                                    device=sel.device),
+                                   torch.ones((), dtype=torch.int32,
+                                              device=sel.device))
+                group_sel = torch.any(sel)[None]
+                lanes_out = [f.accumulate(accs, gids, vals, mask)
+                             for f, accs, (vals, mask) in zip(
+                                 self.fns, self._init_accs(1, sel.device),
+                                 inputs)]
+                return [], lanes_out, group_sel, [None] * len(self.specs)
+            pairs = [cols[k] for k in keys]
+            gids, group_rows, group_sel, _ = group_ids_sorted(pairs, sel)
             lanes_out = [f.accumulate(accs, gids, vals, mask)
                          for f, accs, (vals, mask) in zip(
-                             self.fns, self._init_accs(1, sel.device),
+                             self.fns, self._init_accs(sel.shape[0],
+                                                       sel.device),
                              inputs)]
-            return [], lanes_out, group_sel, [None] * len(self.specs)
+            gkeys = [(v.index_select(0, group_rows),
+                      None if va is None else va.index_select(0, group_rows))
+                     for v, va in pairs]
+            return gkeys, lanes_out, group_sel, [None] * len(self.specs)
 
         return fn
 
@@ -408,8 +471,10 @@ class HashAggregationOp(Operator):
         return Batch(cols, seen)
 
     def _merge_entries(self, entries: List[dict]) -> Batch:
-        """Combine the keyless one-slot partials into the single output
-        row (slot 0 of a lane-sized batch)."""
+        """Combine every batch's partials: concatenate them (padded to a
+        power of two), group the concatenated keys again and combine the
+        lanes by the new group ids. Keyless: the single output row (slot
+        0), emitted even on empty input."""
         n_reg = sum(e["sel"].shape[0] for e in entries)
         cap = round_capacity(n_reg)
         pad = cap - n_reg
@@ -422,15 +487,28 @@ class HashAggregationOp(Operator):
                                             device=device)]
             return torch.cat(parts)
 
+        keys = []
+        for ki in range(len(self.keys)):
+            parts = [e["keys"][ki] for e in entries]
+            vals = cat([v for v, _ in parts])
+            valid = None
+            if any(va is not None for _, va in parts):
+                valid = cat([va if va is not None
+                             else torch.ones_like(v, dtype=torch.bool)
+                             for v, va in parts], False)
+            keys.append((vals, valid))
         sel = cat([e["sel"] for e in entries], False)
-        gids = torch.where(sel, torch.zeros((), dtype=torch.int32,
-                                            device=device),
-                           torch.full((), cap, dtype=torch.int32,
-                                      device=device))
-        # a global aggregation emits one row even on empty input
-        group_sel = torch.zeros((cap,), dtype=torch.bool, device=device)
-        group_sel[0] = True
+        gids, group_rows, group_sel, _ = group_ids_sorted(keys, sel)
+        if not self.keys:
+            group_sel = torch.zeros((cap,), dtype=torch.bool, device=device)
+            group_sel[0] = True
         cols = {}
+        for k, (v, va) in zip(self.keys, keys):
+            kt = self.output_type.find_child(k)
+            cols[k] = Column(
+                kt, v.index_select(0, group_rows),
+                None if va is None else va.index_select(0, group_rows),
+                _key_dict_for(self._key_dicts, kt, k))
         for ai, (name, fn, accs) in enumerate(zip(
                 self.agg_names, self.fns, self._init_accs(cap, device))):
             lanes = tuple(cat([e["lanes"][ai][li] for e in entries])
@@ -443,7 +521,7 @@ class HashAggregationOp(Operator):
 
     def _empty_result(self) -> Batch:
         cap = round_capacity(1)
-        device = self._device or resolve_device(None)
+        device = self._device or plan_device(self.node)
         if self.keys:
             return Batch.empty_like(self.output_type, cap, device)
         sel = torch.zeros((cap,), dtype=torch.bool, device=device)
@@ -458,6 +536,205 @@ class HashAggregationOp(Operator):
 
     def is_finished(self) -> bool:
         return self.no_more_input_seen and self._emitted
+
+
+# ------------------------------------------------------ streaming agg
+
+def _keys_eq(a: Tuple, b: Tuple) -> torch.Tensor:
+    """SQL grouping equality of two (values, valid) pairs: equal values
+    where both are valid, or both null."""
+    (av, avd), (bv, bvd) = a, b
+    if avd is None and bvd is None:
+        return av == bv
+    an = torch.zeros_like(av, dtype=torch.bool) if avd is None else ~avd
+    bn = torch.zeros_like(bv, dtype=torch.bool) if bvd is None else ~bvd
+    return ((av == bv) & ~an & ~bn) | (an & bn)
+
+
+class StreamingAggregationOp(HashAggregationOp):
+    """velox/exec/StreamingAggregation.h: aggregation over input CLUSTERED
+    on the grouping keys, so a group closes as soon as the key changes and
+    only the open group is kept between batches.
+
+    Per batch: pack the active rows (one host sync), mark the rows whose
+    keys differ from the previous row, find the group heads (one host
+    sync), reduce every lane over its group with a segmented scan
+    (``ops/groupby.segment_scan``: exact for integers, no prefix
+    subtraction for floats) and read each group's total at its last row.
+    The carried open group merges into the batch's first group when the
+    keys match, else it is emitted on its own, first. Every group but the
+    batch's last is emitted; the last becomes the new carry, flushed after
+    the input ends. The reference splits this into two programs sized by
+    a synced count (to give XLA static shapes); eager torch learns the
+    count directly, so one step gives the same rows in the same order.
+
+    ``having`` (a HAVING predicate the optimizer folds in) is evaluated on
+    the emitted groups, and each batch's output is compacted to the
+    groups that pass (one more host sync).
+    """
+
+    blocking = False
+
+    def __init__(self, node):
+        super().__init__(node)
+        if not self.keys:
+            raise ValueError("keyless aggregation has no streams to close")
+        for spec, fn in zip(self.specs, self.fns):
+            if not fn.scannable:
+                raise NotImplementedError(
+                    f"streaming {spec.fn} is not ported (no scan lanes)")
+        #: (key pairs of 1-element tensors, lanes per aggregate) or None
+        self._carry: Optional[Tuple[list, list]] = None
+        having = getattr(node, "having", None)
+        self._having_eval = (ExprEvaluator([having], node.output_type)
+                             if having is not None else None)
+        self._queue: collections.deque = collections.deque()
+
+    def _emit(self, cols: Dict[str, Column], sel: torch.Tensor) -> Batch:
+        b = Batch(cols, sel)
+        if self._having_eval is not None:
+            b = b.with_sel(self._having_eval.filter_sel(b)).compact()
+        return b
+
+    def add_input(self, batch: Batch) -> None:
+        self._device = batch.device
+        self.note_key_dicts(batch)
+        cols = _cols_of(batch, self._needed)
+        rows = syncs.nonzero(batch.sel)
+        n = rows.shape[0]
+        if n == 0:
+            return   # an empty batch neither extends nor closes a group
+
+        def pack(pair):
+            v, va = pair
+            return (v.index_select(0, rows),
+                    None if va is None else va.index_select(0, rows))
+
+        kp = [pack(cols[k]) for k in self.keys]
+        pcols = {name: pack(p) for name, p in cols.items()}
+        device = batch.device
+
+        # a head row differs from its predecessor in some key
+        head = torch.ones(n, dtype=torch.bool, device=device)
+        same_prev = torch.ones(n, dtype=torch.bool, device=device)
+        for v, va in kp:
+            same_prev[1:] &= _keys_eq(
+                (v[1:], None if va is None else va[1:]),
+                (v[:-1], None if va is None else va[:-1]))
+        head[1:] = ~same_prev[1:]
+        starts = syncs.nonzero(head)
+        ng = starts.shape[0]
+        last_rows = torch.cat([starts[1:] - 1,
+                               torch.full((1,), n - 1, device=device,
+                                          dtype=torch.int64)])
+
+        carry = self._carry
+        if carry is not None:
+            ck, cl = carry
+            merge = torch.ones((), dtype=torch.bool, device=device)
+            for (v, va), (cv, cva) in zip(kp, ck):
+                merge = merge & _keys_eq(
+                    (v[:1], None if va is None else va[:1]), (cv, cva))[0]
+        # group totals: each lane's segmented scan at the group's last row
+        inputs = self._agg_inputs(pcols, torch.ones(
+            n, dtype=torch.bool, device=device))
+        totals = []
+        for ai, (fn, at, (vals, mask)) in enumerate(zip(
+                self.fns, self.arg_types, inputs)):
+            lanes = []
+            for li, (lane, c) in enumerate(zip(
+                    fn.lanes, fn.lane_contribs(vals, mask, at))):
+                t = segment_scan(c, head, lane.scan_op).index_select(
+                    0, last_rows)
+                if carry is not None:
+                    # the carried group continues into group 0, under the
+                    # lane's own combine
+                    prev = cl[ai][li].to(t.dtype)
+                    t0 = torch.where(
+                        merge, SCAN_COMBINE[lane.scan_op](t[:1], prev), t[:1])
+                    t = torch.cat([t0, t[1:]])
+                lanes.append(t)
+            totals.append(lanes)
+
+        # ng output slots: slot 0 is the carry, live only when it did not
+        # merge into group 0; slots 1 .. ng-1 are groups 0 .. ng-2
+        cap = round_capacity(ng)
+        pad = cap - ng
+        gsel = torch.arange(cap, device=device) < ng
+        gsel[0] = False if carry is None else ~merge
+        key_rows = starts[:ng - 1]
+        out: Dict[str, Column] = {}
+        for k, (v, va), ci in zip(self.keys, kp, range(len(self.keys))):
+            kt = self.output_type.find_child(k)
+            first = (carry[0][ci][0] if carry is not None
+                     else v[:1])
+            kv = torch.cat([first, v.index_select(0, key_rows),
+                            v.new_zeros(pad)])
+            kva = None
+            if va is not None or (carry is not None
+                                  and carry[0][ci][1] is not None):
+                cva = (carry[0][ci][1] if carry is not None
+                       and carry[0][ci][1] is not None
+                       else torch.ones(1, dtype=torch.bool, device=device))
+                gva = (va.index_select(0, key_rows) if va is not None
+                       else torch.ones(ng - 1, dtype=torch.bool,
+                                       device=device))
+                kva = torch.cat([cva, gva, torch.zeros(
+                    pad, dtype=torch.bool, device=device)])
+            out[k] = Column(kt, kv, kva,
+                            _key_dict_for(self._key_dicts, kt, k))
+        for ai, (name, fn, at) in enumerate(zip(
+                self.agg_names, self.fns, self.arg_types)):
+            accs = []
+            for li, t in enumerate(totals[ai]):
+                c0 = (carry[1][ai][li].to(t.dtype) if carry is not None
+                      else t[:1])
+                accs.append(torch.cat([c0, t[:ng - 1], t.new_zeros(pad)]))
+            vals, valid = fn.extract(tuple(accs), gsel)
+            out[name] = Column(self.output_type.find_child(name), vals,
+                               valid)
+        emitted = self._emit(out, gsel)
+        self._queue.append(emitted)
+
+        # the batch's last group is the new carry
+        self._carry = (
+            [(v[n - 1:n], None if va is None else va[n - 1:n])
+             for v, va in kp],
+            [[t[ng - 1:ng] for t in lanes] for lanes in totals])
+
+    def get_output(self) -> Optional[Batch]:
+        if self._queue:
+            return self._queue.popleft()
+        if not self.no_more_input_seen or self._emitted:
+            return None
+        self._emitted = True
+        if self._carry is None:
+            return None
+        # flush the open group as one final row
+        ck, cl = self._carry
+        cap = round_capacity(1)
+        device = ck[0][0].device
+        sel0 = torch.zeros(cap, dtype=torch.bool, device=device)
+        sel0[0] = True
+        cols: Dict[str, Column] = {}
+        for k, (cv, cva) in zip(self.keys, ck):
+            kt = self.output_type.find_child(k)
+            cols[k] = Column(
+                kt, torch.cat([cv, cv.new_zeros(cap - 1)]),
+                None if cva is None else torch.cat(
+                    [cva, cva.new_zeros(cap - 1)]),
+                _key_dict_for(self._key_dicts, kt, k))
+        for name, fn, lanes in zip(self.agg_names, self.fns, cl):
+            full = tuple(torch.cat([lv, lv.new_zeros(cap - 1)])
+                         for lv in lanes)
+            vals, valid = fn.extract(full, sel0)
+            cols[name] = Column(self.output_type.find_child(name), vals,
+                                valid)
+        return self._emit(cols, sel0)
+
+    def is_finished(self) -> bool:
+        return (self.no_more_input_seen and not self._queue
+                and self._emitted)
 
 
 # ------------------------------------------------------------------ order
@@ -484,10 +761,560 @@ class OrderByOp(Operator):
         if not batches:
             return None
         big = concat_batches(batches)
-        keys = [(big.column(k.name).values, big.column(k.name).valid,
-                 k.descending, k.nulls_first) for k in self.node.keys]
-        perm = sort_indices(keys, big.sel)
+        perm = sort_indices(_sort_keys(big, self.node.keys), big.sel)
         return big.gather(perm, big.sel.index_select(0, perm), big.num_rows)
 
     def is_finished(self) -> bool:
         return self.no_more_input_seen and self._emitted
+
+
+def _sort_keys(batch: Batch, fields) -> list:
+    return [(batch.column(k.name).values, batch.column(k.name).valid,
+             k.descending, k.nulls_first) for k in fields]
+
+
+class TopNOp(Operator):
+    """velox/exec/TopN.h: carry the running top N across batches. Each
+    batch is concatenated after the carry and stably sorted, so rows that
+    tie on every key stay in arrival order, as in the reference."""
+
+    blocking = True
+
+    def __init__(self, node):
+        super().__init__(node)
+        self._carry: Optional[Batch] = None
+        self._emitted = False
+
+    def add_input(self, batch: Batch) -> None:
+        merged = (batch if self._carry is None
+                  else concat_batches([self._carry, batch]))
+        idx, osel = top_n_indices(_sort_keys(merged, self.node.keys),
+                                  merged.sel, self.node.count)
+        self._carry = merged.gather(idx, osel)
+
+    def get_output(self) -> Optional[Batch]:
+        if not self.no_more_input_seen or self._emitted:
+            return None
+        self._emitted = True
+        return self._carry
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen and self._emitted
+
+
+class LimitOp(Operator):
+    """velox/exec/Limit.h: offset and limit by masking selection ranks
+    (one host sync per batch for the batch's active count)."""
+
+    def __init__(self, node):
+        super().__init__(node)
+        self._skip = node.offset
+        self._left = node.count
+        self._queue: collections.deque = collections.deque()
+
+    def add_input(self, batch: Batch) -> None:
+        if self._left <= 0:
+            return
+        ranks = torch.cumsum(batch.sel, 0)
+        keep = batch.sel & (ranks > self._skip) & (
+            ranks <= self._skip + self._left)
+        n_in = syncs.to_int(ranks[-1])
+        n_kept = min(max(n_in - self._skip, 0), self._left)
+        self._skip = max(self._skip - n_in, 0)
+        self._left -= n_kept
+        if n_kept > 0:
+            self._queue.append(batch.with_sel(keep, n_kept))
+
+    def needs_input(self) -> bool:
+        return super().needs_input() and self._left > 0
+
+    def get_output(self) -> Optional[Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return (not self._queue
+                and (self.no_more_input_seen or self._left <= 0))
+
+
+# ------------------------------------------------------------------ joins
+
+def _canon_int(v: torch.Tensor) -> torch.Tensor:
+    """Values -> an equality-preserving integer lane, 32-bit lanes kept
+    narrow: floats by their bits (-0.0 as +0.0, one NaN)."""
+    if v.dtype.is_floating_point:
+        v = torch.where(v == 0, torch.zeros_like(v), v)
+        v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")),
+                        v)
+        return v.view(torch.int32 if v.dtype == torch.float32
+                      else torch.int64)
+    if v.dtype == torch.bool or v.element_size() <= 4:
+        return v.to(torch.int32)
+    return v.to(torch.int64)
+
+
+def _minmax(v: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """[min, max] of the active values as one 2-element device tensor
+    (both read on the host in one sync)."""
+    info = torch.iinfo(v.dtype)
+    lo = torch.where(act, v, torch.full_like(v, info.max)).min()
+    hi = torch.where(act, v, torch.full_like(v, info.min)).max()
+    return torch.stack([lo, hi]).to(torch.int64)
+
+
+class JoinKeyCodec:
+    """Canonicalize join key columns into one integer key.
+
+    One key: its own lane (dictionary codes, or the canonical integer),
+    narrowed to int32 when the build's (min, max) fits. Several keys: each
+    key's offset from its build minimum packs into a normalized key
+    (velox/exec/VectorHasher.h:130), probe rows out of the build range
+    marked unmatchable. A probe-side dictionary that is not the build's
+    remaps through a host table into the build's codes. The build's
+    (min, max) is one host sync."""
+
+    def __init__(self, build_batch: Batch, build_keys: Sequence[str]):
+        self.build_keys = list(build_keys)
+        self.cols = [build_batch.column(k) for k in build_keys]
+        self.multi = len(self.cols) > 1
+        self.dicts = [c.dictionary for c in self.cols]
+        self.narrow = None  # (lo, hi) when a single wide key fits int32
+        self.lohi = None    # host (lo, hi) of the encoded key domain
+        sel = build_batch.sel
+
+        def act_of(c):
+            return sel if c.valid is None else sel & c.valid
+
+        if not self.multi:
+            c = self.cols[0]
+            if c.dictionary is not None:
+                if len(c.dictionary) > 0:
+                    self.lohi = (0, len(c.dictionary) - 1)
+            elif c.values.dtype != torch.bool and \
+                    not c.values.dtype.is_floating_point:
+                v = _canon_int(c.values)
+                lo, hi = (int(x) for x in syncs.to_numpy(
+                    _minmax(v, act_of(c))))
+                if lo <= hi:
+                    self.lohi = (lo, hi)
+                    if v.dtype == torch.int64 and lo >= -(2 ** 31) \
+                            and hi < 2 ** 31:
+                        self.narrow = (lo, hi)
+        else:
+            fetched = syncs.to_numpy(torch.cat([
+                _minmax(_canon_int(c.values).to(torch.int64), act_of(c))
+                for c in self.cols]))
+            self.mins, self.bits = [], []
+            for ki in range(len(self.cols)):
+                lo, hi = int(fetched[2 * ki]), int(fetched[2 * ki + 1])
+                if hi < lo:  # empty build side
+                    lo, hi = 0, 0
+                self.mins.append(lo)
+                self.bits.append(max(int(hi - lo).bit_length(), 1))
+            if sum(self.bits) > 63:
+                raise ValueError("normalized join key overflow")
+            self.lohi = (0, (1 << sum(self.bits)) - 1)
+        self._remaps: Dict[int, Tuple[Dictionary, torch.Tensor]] = {}
+
+    def range_hint(self, max_span: int):
+        """Host ``(lo, span)`` of the encoded key domain when small enough
+        for a direct-address (kArray) join table, else None."""
+        if self.lohi is None:
+            return None
+        lo, hi = self.lohi
+        span = hi - lo + 1
+        return (lo, span) if span <= max_span else None
+
+    def _remap_table(self, i: int, probe_dict: Dictionary,
+                     device: torch.device) -> torch.Tensor:
+        hit = self._remaps.get(i)
+        if hit is None or hit[0] is not probe_dict:
+            d_build = self.dicts[i]
+            t = np.full(len(probe_dict) + 1, -1, np.int32)
+            for ci, val in enumerate(probe_dict.values):
+                t[ci + 1] = d_build.code_of(val)
+            hit = (probe_dict, torch.from_numpy(t).to(device))
+            self._remaps[i] = hit
+        return hit[1]
+
+    def encode(self, cols, dicts, is_probe: bool):
+        """``cols`` = [(values, valid)] parallel to the build keys, with
+        each side's own dictionaries. Returns ``(key, null_valid,
+        match_valid)``: ``null_valid`` is SQL null-ness, ``match_valid``
+        marks rows that provably cannot match (a dictionary miss, out of
+        the build range): excluded from matching but not null."""
+        null_valid = None
+        match_valid = None
+
+        def both(a, b):
+            return b if a is None else a & b
+
+        vals64 = []
+        for i, ((values, cvalid), pdict) in enumerate(zip(cols, dicts)):
+            v = _canon_int(values)
+            if cvalid is not None:
+                null_valid = both(null_valid, cvalid)
+            if self.dicts[i] is not None and is_probe \
+                    and pdict is not self.dicts[i]:
+                if pdict is None:
+                    raise ValueError(
+                        f"join key {self.build_keys[i]}: probe side not "
+                        "dictionary-encoded")
+                remap = self._remap_table(i, pdict, values.device)
+                idx = values.to(torch.int64).clamp(-1, len(pdict) - 1) + 1
+                v = remap.index_select(0, idx)
+                match_valid = both(match_valid, v >= 0)
+            if self.multi:
+                lo, b = self.mins[i], self.bits[i]
+                off = v.to(torch.int64) - lo
+                in_range = (off >= 0) & (off < (1 << b))
+                if is_probe:
+                    match_valid = both(match_valid, in_range)
+                vals64.append(torch.where(in_range, off,
+                                          torch.zeros_like(off)))
+            else:
+                vals64.append(v)
+        if not self.multi:
+            v = vals64[0]
+            if self.narrow is not None and v.dtype == torch.int64:
+                lo, hi = self.narrow
+                if is_probe:
+                    match_valid = both(match_valid, (v >= lo) & (v <= hi))
+                    v = v.clamp(lo, hi)
+                v = v.to(torch.int32)
+            return v, null_valid, match_valid
+        lane = torch.int32 if sum(self.bits) <= 31 else torch.int64
+        key = torch.zeros_like(vals64[0], dtype=lane)
+        shift = 0
+        for off, b in zip(vals64, self.bits):
+            key = key | (off.to(lane) << shift)
+            shift += b
+        return key, null_valid, match_valid
+
+
+def _distinct(a: np.ndarray) -> np.ndarray:
+    """Sorted distinct values of a host array, by one sort. (numpy 2.3's
+    ``np.unique`` hashes integers instead: 1.4 s over TPC-H Q3's two
+    pushed key sets at SF10, about 1.75M keys, where a sort takes tens of
+    milliseconds.)"""
+    s = np.sort(a)
+    return s[np.concatenate(([True], s[1:] != s[:-1]))]
+
+
+def _and_valid(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    if a is None:
+        return b
+    return a if b is None else a & b
+
+
+class JoinBridge:
+    """velox/exec/HashJoinBridge.h: the build side's handoff to the
+    probe. ``on_ready`` callbacks fire when the build publishes (the
+    probe pushes its dynamic filter then, before its scan's first
+    split)."""
+
+    def __init__(self, node):
+        self.node = node
+        self.ready = False
+        self.build_batch: Optional[Batch] = None
+        self.codec: Optional[JoinKeyCodec] = None
+        self.sorted_keys = None
+        self.perm = None
+        self.n_active = None
+        self.tables = ()   # kArray (tfirst, tcount) when the range is small
+        self.key_lo = 0
+        #: a build spilled to host partitions (no spill in this port yet)
+        self.spill_parts = None
+        self.on_ready: List[Callable] = []
+
+    def mark_ready(self) -> None:
+        self.ready = True
+        for cb in self.on_ready:
+            cb()
+
+
+class HashBuildOp(Operator):
+    """velox/exec/HashBuild.cpp: sink; buffer, concatenate, compact, sort
+    by key."""
+
+    blocking = True
+    #: how the build index is made (merge joins skip the sort)
+    _index_build = staticmethod(build_join_index)
+
+    def __init__(self, node, bridge: JoinBridge):
+        super().__init__(node)
+        self.bridge = bridge
+        self._buffer: List[Batch] = []
+        self._device: Optional[torch.device] = None
+
+    def add_input(self, batch: Batch) -> None:
+        self._device = batch.device
+        self._buffer.append(batch)
+
+    def no_more_input(self) -> None:
+        if self.no_more_input_seen:
+            return
+        super().no_more_input()
+        node = self.bridge.node
+        batches, self._buffer = self._buffer, []
+        if batches:
+            # a sparse build shrinks before its index is made: every probe
+            # batch gathers from it (the count sync is skipped when known)
+            big = concat_batches(batches)
+            big = big.compact(big.num_rows)
+        else:
+            big = Batch.empty_like(node.right.output_type, round_capacity(1),
+                                   self._device or plan_device(node.right))
+        build_bridge_state(self.bridge, node, big, type(self)._index_build)
+
+    def get_output(self) -> Optional[Batch]:
+        return None
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen
+
+
+def build_bridge_state(bridge: JoinBridge, node, big: Batch,
+                       index_build) -> None:
+    """Compute the build side's join state and publish it on the bridge.
+    A selective build (few live rows in a large capacity) is compacted
+    first: the probe's searches and gathers cost by build capacity."""
+    from velox_tpu_torch.utils.config import config
+
+    if big.capacity > (1 << 16):
+        cnt = (big.num_rows if big.num_rows is not None
+               else big.selected_count())
+        if cnt * 8 < big.capacity:
+            big = big.compact(cnt)   # order-preserving, merge builds too
+    codec = JoinKeyCodec(big, node.right_keys)
+    rng_hint = codec.range_hint(config.karray_join_span)
+    cols = [(big.column(k).values, big.column(k).valid)
+            for k in node.right_keys]
+    dicts = [big.column(k).dictionary for k in node.right_keys]
+    key, null_valid, match_valid = codec.encode(cols, dicts, is_probe=False)
+    sorted_keys, perm, n_active = index_build(
+        key, _and_valid(null_valid, match_valid), big.sel)
+    tables = ()
+    if rng_hint is not None:
+        tables = build_join_table(sorted_keys, n_active, *rng_hint)
+    bridge.build_batch = big
+    bridge.codec = codec
+    bridge.sorted_keys, bridge.perm, bridge.n_active = (
+        sorted_keys, perm, n_active)
+    bridge.tables = tables
+    bridge.key_lo = rng_hint[0] if rng_hint else 0
+    bridge.mark_ready()
+
+
+class HashProbeOp(Operator):
+    """velox/exec/HashProbe.cpp, inner and left-semi joins: per probe
+    batch, the (first, count) match runs from the kArray table when the
+    build range is small, else from a binary search (or, in a merge join
+    over an ascending probe lane, the flipped merge probe). A semi join
+    only narrows the batch's selection. An inner join reads the match
+    total on the host (one sync), expands the runs probe-major and
+    gathers both sides' columns."""
+
+    _SUPPORTED = (JoinType.INNER, JoinType.LEFT_SEMI)
+
+    #: value sets at most this large push as exact sorted IN-tables
+    _SET_PUSH_MAX = 4096
+    #: string sets at most this large push as IN literal lists
+    _STR_SET_MAX = 100
+    #: build sides beyond this capacity push nothing (host copy cost)
+    _PUSH_CAP_MAX = 1 << 21
+
+    def __init__(self, node, bridge: JoinBridge):
+        super().__init__(node)
+        if node.join_type not in self._SUPPORTED:
+            raise NotImplementedError(
+                f"{node.join_type.value} joins are not ported to "
+                "velox_tpu_torch yet")
+        if node.filter is not None:
+            raise NotImplementedError(
+                "join filters are not ported to velox_tpu_torch yet")
+        self.bridge = bridge
+        self.jt = node.join_type
+        self._queue: collections.deque = collections.deque()
+        #: the probe side's scan, set by LocalPlanner when the pushdown
+        #: applies
+        self.pushdown_scan: Optional[TableScanOp] = None
+        self._pushdown_done = False
+        bridge.on_ready.append(self._on_build_ready)
+
+    def _on_build_ready(self) -> None:
+        if not self._pushdown_done and self.pushdown_scan is not None:
+            self._push_dynamic_filter()
+
+    def _push_dynamic_filter(self) -> None:
+        """Push build-side key filters into the probe-side scan: an exact
+        IN-table for at most 4096 values, an IN list for dictionary
+        strings, else a min/max range and a bloom bitmask
+        (velox/exec/HashProbe.cpp:419-444). One host copy of the build's
+        selection and keys."""
+        from velox_tpu_torch.expr.ir import (
+            Call, Literal, and_, field, gte, lit, lte,
+        )
+        from velox_tpu_torch.functions.scalar import (
+            bloom_literal, in_table_literal,
+        )
+        from velox_tpu_torch.ops.bloom import build_bloom
+
+        self._pushdown_done = True
+        scan = self.pushdown_scan
+        br = self.bridge
+        if scan is None or not br.ready or br.build_batch is None:
+            return
+        big = br.build_batch
+        if big.capacity > self._PUSH_CAP_MAX:
+            return
+        scan_cols = set(scan.node.all_columns)
+        pairs = [(lk, rk) for lk, rk in zip(self.node.left_keys,
+                                            self.node.right_keys)
+                 if lk in scan_cols]
+        sel_host = syncs.to_numpy(big.sel)
+        if not sel_host.any():
+            scan.dynamic_filters.append(
+                ExprEvaluator([lit(False)], scan.fschema))
+            return
+        conjs = []
+        for lk, rk in pairs:
+            col = big.column(rk)
+            vals = syncs.to_numpy(col.values)
+            m = sel_host
+            if col.valid is not None:
+                m = m & syncs.to_numpy(col.valid)
+            live = vals[m]
+            if live.size == 0:
+                continue
+            if col.dictionary is not None:
+                # distinct build strings; the IN list binds against the
+                # probe side's own dictionary
+                codes = _distinct(live)
+                codes = codes[codes >= 0]
+                if len(codes) > self._STR_SET_MAX:
+                    continue
+                conjs.append(Call(BOOLEAN, "in", tuple(
+                    [field(lk)] + [Literal(None, str(col.dictionary.values[c]))
+                                   for c in codes])))
+                continue
+            u = _distinct(live)
+            f = field(lk)
+            # each table goes to the card once here, not once a batch
+            if len(u) <= self._SET_PUSH_MAX:
+                table = in_table_literal(np.ascontiguousarray(u), big.device)
+                conjs.append(Call(BOOLEAN, "__in_table",
+                                  (f, Literal(BIGINT, table))))
+            else:
+                conjs.append(and_(gte(f, lit(u[0].item())),
+                                  lte(f, lit(u[-1].item()))))
+                words = bloom_literal(build_bloom(u), big.device)
+                conjs.append(Call(BOOLEAN, "__bloom_contains",
+                                  (f, Literal(BIGINT, words))))
+        if not conjs:
+            return
+        expr = conjs[0]
+        for c in conjs[1:]:
+            expr = Call(BOOLEAN, "and", (expr, c))
+        scan.dynamic_filters.append(ExprEvaluator([expr], scan.fschema))
+
+    def _probe_sorted(self, batch: Batch):
+        """Hash probes assume nothing about probe order (the merge probe
+        overrides this)."""
+        return False
+
+    def _runs(self, batch: Batch):
+        """(first, count) per probe row."""
+        br = self.bridge
+        node = self.node
+        key_cols = [(batch.column(k).values, batch.column(k).valid)
+                    for k in node.left_keys]
+        dicts = [batch.column(k).dictionary for k in node.left_keys]
+        key, null_valid, match_valid = br.codec.encode(
+            key_cols, dicts, is_probe=True)
+        sel = batch.sel
+        if len(br.tables) == 2:
+            # kArray first: two table gathers beat any search
+            return probe_join_table(br.tables[0], br.tables[1], br.key_lo,
+                                    key, _and_valid(null_valid, match_valid),
+                                    sel)
+        flip = self._probe_sorted(batch)
+        if flip == "repair":
+            # only rows outside the lane order (padding, null keys) take
+            # the fill; match_valid folds in after it
+            return probe_join_index_merge_repair(
+                br.sorted_keys, br.n_active, key, null_valid, sel,
+                match_valid=match_valid)
+        valid = _and_valid(null_valid, match_valid)
+        if flip:
+            return probe_join_index_merge(br.sorted_keys, br.n_active, key,
+                                          valid, sel)
+        return probe_join_index(br.sorted_keys, br.n_active, key, valid, sel)
+
+    def add_input(self, batch: Batch) -> None:
+        br = self.bridge
+        if br.spill_parts is not None:
+            raise NotImplementedError(
+                "probing a spilled join build is not ported yet")
+        if not br.ready:
+            raise RuntimeError("probe before the build finished")
+        if not self._pushdown_done:
+            self._push_dynamic_filter()
+        first, count = self._runs(batch)
+        out_names = self.output_type.names
+        if self.jt == JoinType.LEFT_SEMI:
+            b = batch.with_sel(batch.sel & (count > 0))
+            self._queue.append(b.project(out_names))
+            return
+        total = syncs.to_int(match_total(count))
+        if total == 0:
+            return
+        out_cap = round_capacity(total)
+        probe_rows, build_rows, matched, out_sel = expand_matches(
+            first, count, br.perm, out_cap)
+        left = set(self.node.left.output_type.names)
+        cols = {}
+        for n in out_names:
+            if n in left:
+                cols[n] = batch.column(n).gather(probe_rows)
+            else:
+                c = br.build_batch.column(n).gather(build_rows)
+                # build columns are valid only where a match exists
+                cols[n] = Column(c.dtype, c.values,
+                                 _and_valid(c.valid, matched),
+                                 c.dictionary, c.stats)
+        self._queue.append(Batch(cols, out_sel, total))
+
+    def get_output(self) -> Optional[Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen and not self._queue
+
+
+class MergeJoinBuildOp(HashBuildOp):
+    """velox/exec/MergeJoin.h:47 build half: the plan guarantees the
+    build input ascends on the key, so the index is a front-pack of the
+    usable rows; nothing is sorted."""
+
+    _index_build = staticmethod(build_join_index_presorted)
+
+
+class MergeJoinProbeOp(HashProbeOp):
+    """velox/exec/MergeJoin.h:47 probe half. Without a kArray table, each
+    batch's probe lane is classified on the device (one host sync): if it
+    ascends (or its active rows are an ascending prefix), the flipped
+    merge probe runs, else a binary search per probe row. With the table
+    the classification would decide nothing, so it is skipped."""
+
+    def _probe_sorted(self, batch: Batch):
+        node = self.node
+        if len(node.left_keys) != 1:
+            return False
+        col = batch.column(node.left_keys[0])
+        if col.dictionary is not None:
+            return False
+        if col.values.dtype not in (torch.int32, torch.int64):
+            return False
+        ok = batch.sel if col.valid is None else batch.sel & col.valid
+        code = syncs.to_int(valid_ascending_code(col.values, ok))
+        return {0: False, 1: "repair", 2: "raw"}[code]

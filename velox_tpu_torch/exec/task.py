@@ -1,11 +1,14 @@
 """Task: plan -> pipelines -> serial driver loop.
 
-The port of ``velox_tpu/exec/task.py`` for the operators of this slice.
-``LocalPlanner`` lowers the plan into an operator chain and fuses
-``TableScan -> (Filter|Project)* -> Aggregation`` prefixes
-(``exec/fused.py``); ``Task.run`` pulls batches through it. ``run_plan``
-returns the result as a dict of Python lists (there is no pyarrow):
-decimals as ``decimal.Decimal``, strings as ``str``.
+The port of ``velox_tpu/exec/task.py`` for the operators of the ported
+slices. ``LocalPlanner`` splits the plan into pipelines at join builds
+(velox/exec/LocalPlanner.cpp mustStartNewPipeline): each join's build
+side becomes a pipeline ending in a build sink that publishes a
+``JoinBridge``; build pipelines run to completion first, in creation
+order (a topological order of the bridges), then the output pipeline
+streams. Each chain is offered to ``maybe_fuse`` (``exec/fused.py``).
+``run_plan`` returns the result as a dict of Python lists (there is no
+pyarrow): decimals as ``decimal.Decimal``, strings as ``str``.
 """
 
 from __future__ import annotations
@@ -15,34 +18,74 @@ from typing import Dict, Iterator, List
 from velox_tpu_torch.vector.batch import Batch
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.operators import (
-    FilterOp, HashAggregationOp, OrderByOp, ProjectOp, TableScanOp,
+    FilterOp, HashAggregationOp, HashBuildOp, HashProbeOp, JoinBridge,
+    LimitOp, MergeJoinBuildOp, MergeJoinProbeOp, OrderByOp, ProjectOp,
+    StreamingAggregationOp, TableScanOp, TopNOp,
 )
 from velox_tpu_torch.plan.nodes import (
-    AggregationNode, FilterNode, OrderByNode, PlanNode, ProjectNode,
-    TableScanNode,
+    AggregationNode, FilterNode, HashJoinNode, JoinType, LimitNode,
+    MergeJoinNode, OrderByNode, PlanNode, ProjectNode,
+    StreamingAggregationNode, TableScanNode, TopNNode,
 )
 
 _SIMPLE_OPERATORS = {
     FilterNode: FilterOp,
     ProjectNode: ProjectOp,
     AggregationNode: HashAggregationOp,
+    StreamingAggregationNode: StreamingAggregationOp,
     OrderByNode: OrderByOp,
+    TopNNode: TopNOp,
+    LimitNode: LimitOp,
 }
+
+#: join types whose probe can push a build-side filter into its scan
+_PUSHDOWN_JOINS = (JoinType.INNER, JoinType.LEFT_SEMI)
+
+
+class Pipeline:
+    def __init__(self, operators: List[Operator], is_output: bool):
+        self.operators = operators
+        self.is_output = is_output
 
 
 class LocalPlanner:
-    """Lower the plan tree into one output chain
-    (velox/exec/LocalPlanner.cpp); joins and unions, which start new
-    pipelines, are not ported yet."""
+    """Split the plan tree into pipelines (velox/exec/LocalPlanner.cpp)."""
 
     def __init__(self, plan: PlanNode):
         from velox_tpu_torch.exec.fused import maybe_fuse
 
-        self.operators: List[Operator] = maybe_fuse(self._lower(plan))
+        self.pipelines: List[Pipeline] = []
+        chain = self._lower(plan)
+        self.pipelines = [Pipeline(maybe_fuse(p.operators), p.is_output)
+                          for p in self.pipelines]
+        self.pipelines.append(Pipeline(maybe_fuse(chain), is_output=True))
+
+    @property
+    def operators(self) -> List[Operator]:
+        """The output pipeline's operators."""
+        return self.pipelines[-1].operators
 
     def _lower(self, node: PlanNode) -> List[Operator]:
         if isinstance(node, TableScanNode):
             return [TableScanOp(node)]
+        if isinstance(node, HashJoinNode):   # MergeJoinNode included
+            merge = isinstance(node, MergeJoinNode)
+            bridge = JoinBridge(node)
+            build_chain = self._lower(node.right)
+            build_chain.append(
+                (MergeJoinBuildOp if merge else HashBuildOp)(node, bridge))
+            self.pipelines.append(Pipeline(build_chain, is_output=False))
+            chain = self._lower(node.left)
+            probe = (MergeJoinProbeOp if merge else HashProbeOp)(node, bridge)
+            # dynamic filter pushdown: the build side's keys filter the
+            # probe side's scan (velox/exec/HashProbe.cpp:419-444)
+            if (isinstance(chain[0], TableScanOp)
+                    and any(k in chain[0].node.columns
+                            for k in node.left_keys)
+                    and node.join_type in _PUSHDOWN_JOINS):
+                probe.pushdown_scan = chain[0]
+            chain.append(probe)
+            return chain
         cls = _SIMPLE_OPERATORS.get(type(node))
         if cls is None:
             raise NotImplementedError(
@@ -63,13 +106,19 @@ def _stream(ops: List[Operator], i: int) -> Iterator[Batch]:
                 break
             yield b
         return
-    for b in _stream(ops, i - 1):
+    upstream = _stream(ops, i - 1)
+    for b in upstream:
+        if not op.needs_input():
+            break
         op.add_input(b)
         while True:
             out = op.get_output()
             if out is None:
                 break
             yield out
+            if op.is_finished():
+                upstream.close()
+                return
     op.no_more_input()
     while not op.is_finished():
         out = op.get_output()
@@ -92,6 +141,13 @@ class Task:
         self.planner = LocalPlanner(plan)
 
     def run(self) -> Iterator[Batch]:
+        for p in self.planner.pipelines:
+            if p.is_output:
+                continue
+            for _ in _stream(p.operators, len(p.operators) - 1):
+                pass
+            # the build sink publishes its bridge here
+            p.operators[-1].no_more_input()
         ops = self.planner.operators
         yield from _stream(ops, len(ops) - 1)
 

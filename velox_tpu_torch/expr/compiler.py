@@ -6,9 +6,10 @@ need, with the same three phases:
 1. ``resolve_types``: bind FieldRefs against an input schema, resolve call
    result types, insert implicit numeric-widening casts and decimal
    rescales (SignatureBinder analog, velox/expression/SignatureBinder.h).
-2. ``bind_strings``: string compares against literals become integer
-   compares on the dictionary codes (the catalog's dictionaries are
-   sorted, so codes are ranks); string columns otherwise pass through.
+2. ``bind_strings``: string compares and ``in`` lists against literals
+   become integer compares on the dictionary codes (the catalog's
+   dictionaries are sorted, so codes are ranks); string columns otherwise
+   pass through.
 3. ``widen_decimal_arith`` then evaluation over ``(values, valid)`` pairs
    with common-subexpression memoization. There is no tracing: every
    node runs as torch ops on the device of the input tensors.
@@ -32,6 +33,7 @@ from velox_tpu_torch.types.types import (
 )
 from velox_tpu_torch.expr.ir import Call, Cast, Expr, FieldRef, Literal, TryExpr
 from velox_tpu_torch.functions.registry import lookup_function
+from velox_tpu_torch.functions.scalar import DeviceTable
 
 _ARITH = {"plus", "minus", "multiply", "divide", "mod"}
 _COMPARE = {"eq", "neq", "lt", "lte", "gt", "gte"}
@@ -224,6 +226,11 @@ def bind_strings(expr: Expr, dictionaries: Dict[str, "Dictionary"],
     args = tuple(bind_strings(a, dictionaries, ranges) for a in expr.args)
     name = expr.name
     src = _dict_source(args, dictionaries)
+    if src is not None and name == "in":
+        codes_expr, d = src
+        return Call(BOOLEAN, "in", (codes_expr, *[
+            Literal(INTEGER, d.code_of(a.value)) for a in args[1:]
+            if isinstance(a, Literal)]))
     litv = _other_literal(args)
     if src is not None and litv is not None:
         codes_expr, d = src
@@ -485,6 +492,10 @@ class ExprSet:
                 expr.dtype.kind != TypeKind.UNKNOWN else np.int64
             hit = (torch.zeros((), dtype=torch_dtype(dt), device=device),
                    torch.zeros((), dtype=torch.bool, device=device))
+        elif isinstance(expr.value, DeviceTable):
+            # a table literal goes to its impl as it is: the impl picks
+            # its form from the host values (functions/scalar.py)
+            hit = (expr.value, None)
         elif isinstance(expr.value, str):
             raise RuntimeError(
                 f"string literal {expr.value!r} reached device eval — "
@@ -514,10 +525,12 @@ class ExprSet:
             if not fn.default_nulls:
                 return fn.impl(*pairs)
             values = [p[0] for p in pairs]
-            common = values[0].dtype
-            for v in values[1:]:
+            tensors = [v for v in values if isinstance(v, torch.Tensor)]
+            common = tensors[0].dtype
+            for v in tensors[1:]:
                 common = torch.promote_types(common, v.dtype)
-            vals = fn.impl(*[v.to(common) for v in values])
+            vals = fn.impl(*[v.to(common) if isinstance(v, torch.Tensor)
+                             else v for v in values])
             valid = None
             for _, va in pairs:
                 if va is not None:

@@ -34,6 +34,9 @@ class AccLane:
     name: str
     dtype_of: Callable[[Optional[DataType]], np.dtype]
     init_of: Callable[[Optional[DataType]], object]
+    #: the associative reduction this lane is ("add"): the streaming
+    #: aggregation's segmented-scan path needs one on every lane
+    scan_op: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -51,6 +54,15 @@ class AggregateFunction:
     extract: Callable
     #: intermediate (partial) output types, parallel to lanes
     lane_types: Callable[[Optional[DataType]], Tuple[DataType, ...]]
+    #: per-row lane contributions for the streaming aggregation:
+    #: (values, mask, arg_type) -> one tensor per lane, in the lane's
+    #: dtype, masked rows at the lane identity
+    lane_contribs: Optional[Callable] = None
+
+    @property
+    def scannable(self) -> bool:
+        return (self.lane_contribs is not None
+                and all(lane.scan_op is not None for lane in self.lanes))
 
 
 aggregate_registry: Dict[str, AggregateFunction] = {}
@@ -184,13 +196,17 @@ register_aggregate(AggregateFunction(
     name="sum",
     resolve_type=_sum_result_type,
     lanes=(
-        AccLane("sum", _sum_lane_dtype, lambda t: 0),
-        AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0),
+        AccLane("sum", _sum_lane_dtype, lambda t: 0, scan_op="add"),
+        AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0,
+                scan_op="add"),
     ),
     accumulate=_sum_acc,
     combine=_sum_combine,
     extract=_sum_extract,
     lane_types=lambda t: (_sum_result_type(t), BIGINT),
+    lane_contribs=lambda values, mask, at: (
+        _masked(values.to(torch_dtype(_sum_lane_dtype(at))), mask, 0),
+        mask.to(torch.int64)),
 ))
 
 
@@ -216,11 +232,13 @@ def _count_combine(accs, gids, lanes, mask):
 register_aggregate(AggregateFunction(
     name="count",
     resolve_type=lambda t: BIGINT,
-    lanes=(AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0),),
+    lanes=(AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0,
+                   scan_op="add"),),
     accumulate=_count_acc,
     combine=_count_combine,
     extract=lambda accs, gm: (accs[0], gm),
     lane_types=lambda t: (BIGINT,),
+    lane_contribs=lambda values, mask, at: (mask.to(torch.int64),),
 ))
 
 
@@ -255,14 +273,19 @@ register_aggregate(AggregateFunction(
         # (possibly narrow) input lane: sums overflow int32
         AccLane("sum", lambda t: np.dtype(np.int64)
                 if isinstance(t, DecimalType) else np.dtype(np.float64),
-                lambda t: 0),
-        AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0),
+                lambda t: 0, scan_op="add"),
+        AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0,
+                scan_op="add"),
     ),
     accumulate=_sum_acc,
     combine=_sum_combine,
     extract=_avg_extract,
     lane_types=lambda t: (
         DOUBLE if not isinstance(t, DecimalType) else t, BIGINT),
+    lane_contribs=lambda values, mask, at: (
+        _masked(values.to(torch.int64 if isinstance(at, DecimalType)
+                          else torch.float64), mask, 0),
+        mask.to(torch.int64)),
 ))
 
 

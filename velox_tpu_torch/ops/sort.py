@@ -42,3 +42,34 @@ def sort_indices(keys: Sequence[SortKey], sel: torch.Tensor) -> torch.Tensor:
     """Stable sort; returns the int64 permutation with active rows first:
     ``out[i]`` is the original row of the i-th row in sort order."""
     return lex_sort(_operands(keys, sel))
+
+
+def compact_indices(sel: torch.Tensor) -> torch.Tensor:
+    """Stable partition of the active rows to the front."""
+    return sort_indices([], sel)
+
+
+def top_n_indices(keys: Sequence[SortKey], sel: torch.Tensor, n: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``n`` rows in sort order: ``(indices, out_sel)``, each of
+    length ``min(n, capacity)``. The sort is stable, so rows that tie on
+    every key keep their input order, as the reference's stable sort
+    leaves them."""
+    top = sort_indices(keys, sel)[:n]
+    return top, sel.index_select(0, top)
+
+
+def pack_indices(sel: torch.Tensor, fill: Optional[int] = None
+                 ) -> torch.Tensor:
+    """int64 positions of the True entries of ``sel``, front-packed in
+    order and padded with ``fill`` (default: the capacity) to the
+    capacity. No host sync: each active row scatters its index to its
+    rank, inactive rows to a spare slot past the end."""
+    cap = sel.shape[0]
+    if fill is None:
+        fill = cap
+    rank = torch.cumsum(sel, 0) - 1
+    slot = torch.where(sel, rank, torch.full_like(rank, cap))
+    out = torch.full((cap + 1,), fill, dtype=torch.int64, device=sel.device)
+    out.scatter_(0, slot, torch.arange(cap, device=sel.device))
+    return out[:cap]

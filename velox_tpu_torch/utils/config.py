@@ -27,5 +27,9 @@ class SessionConfig:
     #: run the sort-order property pass (plan/optimizer.py)
     optimize_plans: bool = True
 
+    #: largest key span a join indexes with a direct-address (kArray)
+    #: table instead of searching its sorted build keys
+    karray_join_span: int = 1 << 26
+
 
 config = SessionConfig()

@@ -13,6 +13,7 @@ import datetime
 import decimal
 from typing import Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from velox_tpu_torch.types.types import (
@@ -101,19 +102,57 @@ class Batch:
         return Batch({n: c.gather(indices) for n, c in self.columns.items()},
                      sel, num_rows)
 
+    # ------------------------------------------------------------- queries
+    def selected_count(self) -> int:
+        """Host sync: the number of active rows."""
+        from velox_tpu_torch.utils.syncs import to_int
+
+        return to_int(self.sel.sum())
+
+    def compact_prefix(self, count: Optional[int] = None) -> "Batch":
+        """``compact`` for a batch whose active rows are exactly
+        ``[0, count)``: slices every column instead of gathering."""
+        if count is None:
+            count = self.selected_count()
+        cap2 = round_capacity(max(count, 1))
+        if cap2 >= self.capacity:
+            return self
+        cols = {n: Column(c.dtype, c.values[:cap2],
+                          None if c.valid is None else c.valid[:cap2],
+                          c.dictionary, c.stats)
+                for n, c in self.columns.items()}
+        sel2 = torch.arange(cap2, device=self.device) < count
+        return Batch(cols, sel2, count)
+
+    def compact(self, count: Optional[int] = None) -> "Batch":
+        """Gather the active rows, in order, to the front of a
+        right-sized batch (one host sync for the count if not given)."""
+        from velox_tpu_torch.ops.sort import pack_indices
+
+        if count is None:
+            count = self.selected_count()
+        cap2 = round_capacity(max(count, 1))
+        if cap2 >= self.capacity:
+            return self
+        idx = pack_indices(self.sel)[:cap2]
+        sel2 = torch.arange(cap2, device=self.device) < count
+        return self.gather(idx, sel2, count)
+
     # --------------------------------------------------------- host output
     def to_pydict(self, limit: Optional[int] = None) -> Dict[str, list]:
         """Materialize the active rows on the host. Decimals come out as
         ``decimal.Decimal``, strings as ``str`` and dates as
         ``datetime.date``, as the JAX package's Arrow output gives them.
         One device-to-host copy per lane, after the selection."""
-        idx = torch.nonzero(self.sel).squeeze(1)
+        from velox_tpu_torch.utils.syncs import nonzero, to_numpy
+
+        idx = nonzero(self.sel)
         if limit is not None:
             idx = idx[:limit]
         out: Dict[str, list] = {}
         for name, col in self.columns.items():
-            vals = col.values.index_select(0, idx).cpu().numpy()
-            valid = (col.valid.index_select(0, idx).cpu().numpy()
+            vals = to_numpy(col.values.index_select(0, idx))
+            valid = (to_numpy(col.valid.index_select(0, idx))
                      if col.valid is not None else None)
             if col.dictionary is not None:
                 py = list(col.dictionary.decode(vals))
@@ -137,15 +176,60 @@ class Batch:
         return f"Batch[{fields}; rows={nr}/{self.capacity}]"
 
 
+def harmonize_dictionaries(batches: Sequence[Batch]) -> List[Batch]:
+    """Re-encode string columns so every batch shares ONE Dictionary per
+    column: the merged sorted union, so codes stay ranks and sort keys
+    stay valid. A no-op when the dictionaries are already shared, which
+    the catalog's table-global dictionaries make the common case; they
+    differ where an empty result made its own (``Batch.empty_like``)."""
+    if len(batches) <= 1:
+        return list(batches)
+    out_cols = [dict(b.columns) for b in batches]
+    changed = False
+    for n in batches[0].names:
+        parts = [b.columns[n] for b in batches]
+        dicts = [p.dictionary for p in parts if p.dictionary is not None]
+        if not dicts:
+            continue
+        d0 = dicts[0]
+        if len(dicts) == len(parts) and all(d is d0 for d in dicts[1:]):
+            continue
+        if len(dicts) != len(parts):
+            raise ValueError(f"column {n}: dictionary-coded and plain "
+                             "parts mixed")
+        full = list({id(d): d for d in dicts if len(d)}.values())
+        # empty dictionaries (empty results) hold no codes: when every
+        # other part shares one dictionary, that one is the union
+        merged = full[0] if len(full) == 1 else Dictionary(sorted(
+            {str(v) for dd in dicts for v in dd.values}))
+        for i, p in enumerate(parts):
+            if p.dictionary is merged:
+                continue
+            table = np.asarray(
+                [-1] + [merged.code_of(str(v))
+                        for v in p.dictionary.values], dtype=np.int32)
+            table_t = torch.from_numpy(table).to(p.values.device)
+            idx = (p.values.to(torch.int64) + 1).clamp(0, len(table) - 1)
+            # stats described the old code space: drop them
+            out_cols[i][n] = Column(p.dtype, table_t.index_select(0, idx),
+                                    p.valid, merged, None)
+        changed = True
+    if not changed:
+        return list(batches)
+    return [Batch(cols, b.sel, b.num_rows)
+            for cols, b in zip(out_cols, batches)]
+
+
 def concat_batches(batches: Sequence[Batch],
                    capacity: Optional[int] = None) -> Batch:
     """Concatenate same-schema batches into one padded batch. String
-    columns must share one Dictionary (the catalog's dictionaries are
-    table-global, and aggregation keys carry theirs through)."""
+    columns are first brought onto one Dictionary per column
+    (``harmonize_dictionaries``)."""
     if not batches:
         raise ValueError("concat of zero batches")
     if len(batches) == 1 and capacity is None:
         return batches[0]
+    batches = harmonize_dictionaries(batches)
     total = sum(b.capacity for b in batches)
     cap = capacity if capacity is not None else round_capacity(total)
     if cap < total:
@@ -163,9 +247,6 @@ def concat_batches(batches: Sequence[Batch],
     for n in batches[0].names:
         parts = [b.columns[n] for b in batches]
         d = parts[0].dictionary
-        if any(p.dictionary is not d for p in parts):
-            raise ValueError(f"column {n}: batches carry different "
-                             "dictionaries")
         valid = None
         if any(p.valid is not None for p in parts):
             valid = cat([p.validity() for p in parts], False)
