@@ -18,24 +18,33 @@ Phases (any failure ends the run with a nonzero exit code):
    each result with a numpy oracle computed on the host from the same
    arrays (decimal results exactly in int64, DOUBLE ones to rtol=1e-9) and
    check that the kernels' launch counters rose once per split;
-4. register lineitem, orders and customer at SF10 (``register_tpch_tables``)
+4. generate the eight TPC-H tables at SF10 and register them
    and run Q3 and Q18 through ``run_plan`` with ``optimize_plans`` on
    (merge joins, streaming aggregation) and off (hash joins, generic
    aggregation) over decimal cents, with it on once more without kArray
    join tables (``karray_join_span = 0``: the binary-search and flipped
-   merge probes run), then with it on over DOUBLE money; compare each
-   with a numpy oracle (exact in int64 cents, row order included; DOUBLE
-   to rtol=1e-9) and print each run's host syncs, kernel launches and
-   join probe forms; time the merge probe's two rank forms
-   (``torch.searchsorted``, ``_rank_in_sorted``) at Q3's shape;
-5. time each query (median of 5 warm runs) and each kernel at Q1's shape
-   on Q1's gids of split 0 and at G = 128 on uniform gids: ``ms`` is a
-   call from Python between CUDA events, ``device_ms`` the device time of
-   a call from CUDA graph replay (no host cost), beside its plain
-   version, one ``index_add_`` over the same bins, and its bound (bytes
-   moved / 3.35 TB/s);
-6. print the kernels as one JSON line, the card line, and last the
-   device line ``{"ok": true, "device": {...}}``.
+   merge probes run), then (after phase 5) with it on over DOUBLE money
+   (lineitem, orders and customer registered again, Q3 and Q18's columns
+   only); compare each with a numpy oracle (exact in int64 cents, row
+   order included; DOUBLE to rtol=1e-9) and print each run's host syncs,
+   kernel launches and join probe forms; time the merge probe's two rank
+   forms (``torch.searchsorted``, ``_rank_in_sorted``) at Q3's shape;
+5. over the same eight tables (cents, narrow lanes, ``optimize_plans``
+   on) run the other 18 queries through ``run_plan``: each checked
+   against its numpy oracle (``velox_tpu_torch/tpch/oracle.py``, computed
+   on the host from the generated arrays: decimals, integers, dates and
+   strings exactly, row order included, DOUBLE to rtol=1e-9) in a run
+   whose host syncs and B1/B2 launches are counted, then timed (median
+   of 5 warm runs) and profiled once (device busy share); B2 must launch
+   in at least one of them;
+6. time each kernel at Q1's shape on Q1's gids of split 0 and at G = 128
+   on uniform gids: ``ms`` is a call from Python between CUDA events,
+   ``device_ms`` the device time of a call from CUDA graph replay (no
+   host cost), beside its plain version, one ``index_add_`` over the
+   same bins, and its bound (bytes moved / 3.35 TB/s); print the query
+   times, then the kernels as one JSON line (with each kernel's launches
+   in every query's checked run), the card line, and last the device
+   line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -130,10 +139,11 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
-def device_breakdown(fn, label: str, wall: float, card: str) -> float:
-    """One profiled run of ``fn``: device time by kernel (top 8) and the
-    device busy share of the unprofiled median wall; returns the busy
-    ms. Only the CUDA kernel rows count; the aten operator rows that
+def device_breakdown(fn, label: str, wall: float, card: str,
+                     top: int = 8) -> float:
+    """One profiled run of ``fn``: device time by kernel (the ``top``
+    largest) and the device busy share of the unprofiled median wall;
+    returns the busy ms. Only the CUDA kernel rows count; the aten operator rows that
     launched them would count the same time twice."""
     import torch
     from torch.autograd import DeviceType
@@ -156,7 +166,7 @@ def device_breakdown(fn, label: str, wall: float, card: str) -> float:
     busy = sum(r[0] for r in rows)
     log(f"profile {label}: device busy {busy} ms of {wall} ms wall "
         f"(busy share {busy / wall}) on {card}")
-    for ms, count, key in rows[:8]:
+    for ms, count, key in rows[:top]:
         log(f"profile {label}:   {ms} ms  x{count}  {key[:90]}")
     return busy
 
@@ -547,17 +557,23 @@ def time_rank_forms(tables, card: str) -> dict:
 
 
 def run_join_queries(card: str, times: dict) -> dict:
-    """Phase 4: Q3 and Q18 over lineitem, orders and customer at SF10
-    against their oracles, both plan shapes and both money schemas, and
-    the merge plans once more without kArray join tables (so the binary
-    search and the flipped merge probe run); time them and profile them,
-    and time the merge probe's two rank forms. Returns each run's host
-    syncs, B1/B2 launches and probe forms, and the rank forms' times."""
+    """Phases 4 and 5: Q3 and Q18 over the eight tables at SF10 against
+    their oracles, both plan shapes and both money schemas, and the merge
+    plans once more without kArray join tables (so the binary search and
+    the flipped merge probe run); time them and profile them, and time
+    the merge probe's two rank forms; between the cents and the DOUBLE
+    runs, phase 5 (``run_more_queries``). Returns each run's host syncs,
+    B1/B2 launches and probe forms, the rank forms' times and phase 5's
+    counts and times."""
     import torch
 
     from velox_tpu_torch.exec import run_plan
-    from velox_tpu_torch.io.catalog import drop_table, get_table
-    from velox_tpu_torch.io.tpch import register_tpch_tables
+    from velox_tpu_torch.io.catalog import (
+        drop_table, get_table, register_columns,
+    )
+    from velox_tpu_torch.io.tpch import (
+        as_money_schema, table_dictionaries, tpch_columns,
+    )
     from velox_tpu_torch.ops import grouped_sum as gs
     from velox_tpu_torch.tpch import tpch_plan
     from velox_tpu_torch.utils import syncs
@@ -580,13 +596,23 @@ def run_join_queries(card: str, times: dict) -> dict:
             f"{forms}")
         return forms
 
+    # register_tpch_tables, step by step, to time each table's ingest
+    # (the sorted string dictionaries are made there)
     t0 = time.perf_counter()
-    tables, dicts = register_tpch_tables(SF, SEED, "cents", SPLIT_ROWS,
-                                         device="cuda")
-    sizes = {t: sum(b.num_rows for b in get_table(t).batches)
-             for t in tables}
-    log(f"registered lineitem, orders, customer SF{SF} (cents): {sizes} "
-        f"rows, {(time.perf_counter() - t0):.3f} s")
+    tables, dicts = tpch_columns(SF, SEED)
+    log(f"generated the eight TPC-H tables SF{SF}: "
+        f"{(time.perf_counter() - t0):.3f} s")
+    for name, columns in tables.items():
+        t0 = time.perf_counter()
+        cols, overrides = as_money_schema(columns, "cents")
+        register_columns(name, cols, table_dictionaries(columns, dicts),
+                         SPLIT_ROWS, overrides, "cuda")
+        strings = {c: len(get_table(name).batches[0].columns[c].dictionary)
+                   for c in cols if c in dicts}
+        log(f"registered {name} (cents): "
+            f"{sum(b.num_rows for b in get_table(name).batches)} rows, "
+            f"{(time.perf_counter() - t0):.3f} s; distinct strings "
+            f"{strings}")
     starts = _order_runs(tables)
     q3_rows = q3_oracle(tables, dicts, starts)
     q18_rows = {by: q18_oracle(tables, dicts, starts, by)
@@ -619,19 +645,106 @@ def run_join_queries(card: str, times: dict) -> dict:
         device_breakdown(lambda: run_plan(tpch_plan(q)), f"q{q}_cents",
                          times[f"q{q}_cents"], card)
 
+    more = run_more_queries(tables, dicts, card, times)
+
     for t in tables:
         drop_table(t)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    register_tpch_tables(SF, SEED, "double", SPLIT_ROWS, device="cuda")
-    log(f"registered lineitem, orders, customer SF{SF} (double): "
-        f"{(time.perf_counter() - t0):.3f} s")
+    for name in ("lineitem", "orders", "customer"):
+        cols, _ = as_money_schema(
+            {c: v for c, v in tables[name].items() if c in Q3_Q18_COLUMNS},
+            "double")
+        register_columns(name, cols, table_dictionaries(cols, dicts),
+                         SPLIT_ROWS, None, "cuda")
+    log(f"registered lineitem, orders, customer SF{SF} (double, Q3 and "
+        f"Q18's columns): {(time.perf_counter() - t0):.3f} s")
     run_checked(3, "double", "Q3 double merge+streaming", q3_rows)
     run_checked(18, "double", "Q18 double merge+streaming", q18_rows[False])
-    for t in tables:
+    for t in ("lineitem", "orders", "customer"):
         drop_table(t)
     torch.cuda.empty_cache()
-    return {"runs": counts, "rank_forms_ms": rank_ms}
+    return {"runs": counts, "rank_forms_ms": rank_ms, "more": more}
+
+
+#: the columns Q3 and Q18 read (the DOUBLE run registers only these)
+Q3_Q18_COLUMNS = {
+    "l_orderkey", "l_extendedprice", "l_discount", "l_shipdate",
+    "l_quantity", "o_orderkey", "o_custkey", "o_orderdate",
+    "o_shippriority", "o_totalprice", "c_custkey", "c_name",
+    "c_mktsegment"}
+
+#: the queries the fifth phase runs
+MORE_QUERIES = [2, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 19, 20,
+                21, 22]
+
+
+def check_result(got: dict, want: dict, what: str) -> None:
+    """Row for row: DOUBLE values to RTOL, everything else (decimals,
+    integers, dates, strings, NULLs) exactly."""
+    check(list(got) == list(want), f"{what}: columns {list(got)}")
+    for c, wv in want.items():
+        gv = got[c]
+        check(len(gv) == len(wv), f"{what} {c}: {len(gv)} rows, want "
+              f"{len(wv)}")
+        for i, (g, w) in enumerate(zip(gv, wv)):
+            if isinstance(w, float) and g is not None:
+                ok = abs(g - w) <= RTOL * abs(w)
+            else:
+                ok = g == w
+            check(ok, f"{what} {c} row {i}: {g!r}, want {w!r}")
+
+
+def run_more_queries(tables, dicts, card: str, times: dict) -> dict:
+    """Phase 5: the other 18 TPC-H queries at SF10 over the eight tables
+    phase 4 registered (cents, narrow lanes, ``optimize_plans`` on). Each
+    is checked against its numpy oracle (``velox_tpu_torch/tpch/
+    oracle.py``, on the host from the generated arrays) with its host
+    syncs and B1/B2 launches counted in that run, then timed (median of
+    5 warm runs) and profiled once (device busy share). Returns the
+    counts and times per query."""
+    import torch
+
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.ops import grouped_sum as gs
+    from velox_tpu_torch.tpch import tpch_plan
+    from velox_tpu_torch.tpch.oracle import answer
+    from velox_tpu_torch.utils import syncs
+
+    out = {}
+    for q in MORE_QUERIES:
+        t0 = time.perf_counter()
+        want = answer(q, tables, dicts, SF)
+        oracle_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        syncs.reset()
+        gs.reset_launches()
+        t0 = time.perf_counter()
+        got = run_plan(tpch_plan(q, SF))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        run = {"syncs": syncs.count, **gs.launches,
+               "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+               "above_tables_gb": (torch.cuda.max_memory_allocated()
+                                   - resident) / 2**30}
+        check_result(got, want, f"Q{q}")
+        wall = wall_ms(lambda: run_plan(tpch_plan(q, SF)))
+        busy = device_breakdown(lambda: run_plan(tpch_plan(q, SF)),
+                                f"q{q}_cents", wall, card, top=3)
+        times[f"q{q}_cents"] = wall
+        out[f"Q{q}"] = {**run, "wall_ms": wall, "busy_ms": busy,
+                        "first_run_ms": first_ms,
+                        "rows": len(next(iter(want.values())))}
+        log(f"Q{q} cents: {out[f'Q{q}']['rows']} rows equal to the oracle "
+            f"({oracle_s:.3f} s on the host); host syncs {run['syncs']}, "
+            f"launches B1 {run['grouped_sum_i32']} B2 "
+            f"{run['grouped_multi_sum_i32']}; warm wall {wall} ms, busy "
+            f"{busy} ms (share {busy / wall}), first run {first_ms} ms; "
+            f"peak device memory {run['peak_gb']:.3f} GiB "
+            f"({run['above_tables_gb']:.3f} above the tables) on {card}")
+    return out
 
 
 # ------------------------------------------------------------- main
@@ -654,7 +767,7 @@ def main() -> int:
     from velox_tpu_torch.io.tpch import register_tpch_lineitem
     from velox_tpu_torch.ops import grouped_sum as gs
     from velox_tpu_torch.tpch import tpch_plan
-    from velox_tpu_torch.utils import cuda_build
+    from velox_tpu_torch.utils import cuda_build, syncs
     from velox_tpu_torch.utils.config import config
 
     card = card_line()
@@ -687,23 +800,29 @@ def main() -> int:
     real_gids = q1_split0_gids(cols)
     check_real_gids(gs, real_gids)
 
+    syncs.reset()
     gs.reset_launches()
     got = run_plan(tpch_plan(1))
     torch.cuda.synchronize()
     q1_counts = dict(gs.launches)
+    main_syncs = {"Q1 cents": syncs.count}
     check(q1_counts == {"grouped_sum_i32": 0,
                         "grouped_multi_sum_i32": splits},
           f"decimal Q1 launches {q1_counts}, want B2 once per split")
     check_q1_cents(got, rows_q1)
-    log(f"Q1 cents: exact; launches {q1_counts}")
+    log(f"Q1 cents: exact; launches {q1_counts}, host syncs "
+        f"{main_syncs['Q1 cents']}")
 
+    syncs.reset()
     gs.reset_launches()
     got6 = run_plan(tpch_plan(6))
     torch.cuda.synchronize()
     q6_counts = dict(gs.launches)
+    main_syncs["Q6 cents"] = syncs.count
     check(len(got6["revenue"]) == 1
           and int(got6["revenue"][0].scaleb(4)) == rev6, "Q6 revenue")
-    log(f"Q6 cents: exact; launches {q6_counts}")
+    log(f"Q6 cents: exact; launches {q6_counts}, host syncs "
+        f"{main_syncs['Q6 cents']}")
 
     times = {"q1_cents": wall_ms(lambda: run_plan(tpch_plan(1))),
              "q6_cents": wall_ms(lambda: run_plan(tpch_plan(6)))}
@@ -717,15 +836,18 @@ def main() -> int:
     register_tpch_lineitem(SF, SEED, "double", SPLIT_ROWS, device="cuda")
     log(f"registered lineitem SF{SF} (double): "
         f"{(time.perf_counter() - t0):.3f} s")
+    syncs.reset()
     gs.reset_launches()
     gotd = run_plan(tpch_plan(1))
     torch.cuda.synchronize()
     qd_counts = dict(gs.launches)
+    main_syncs["Q1 double"] = syncs.count
     check(qd_counts == {"grouped_sum_i32": splits,
                         "grouped_multi_sum_i32": 0},
           f"DOUBLE Q1 launches {qd_counts}, want B1 once per split")
     check_q1_double(gotd, rows_q1)
-    log(f"Q1 double: within rtol={RTOL}; launches {qd_counts}")
+    log(f"Q1 double: within rtol={RTOL}; launches {qd_counts}, host "
+        f"syncs {main_syncs['Q1 double']}")
     times["q1_double"] = wall_ms(lambda: run_plan(tpch_plan(1)))
     device_breakdown(lambda: run_plan(tpch_plan(1)), "q1_double",
                      times["q1_double"], card)
@@ -733,10 +855,10 @@ def main() -> int:
     del cols, rows_q1
     torch.cuda.empty_cache()
 
-    # 4. the joins: Q3 and Q18
+    # 4. the joins: Q3 and Q18; 5. the other 18 queries
     joins = run_join_queries(card, times)
 
-    # 5. timings
+    # 6. timings
     for k, v in times.items():
         log(f"time {k}: {v} ms (median of 5 warm runs, SF{SF}, "
             f"{splits} splits) on {card}")
@@ -754,24 +876,30 @@ def main() -> int:
             f"({k['bound_by']}) on {card}")
     check(all(k["max_abs_err"] == 0 for k in wide), "kernel error")
 
-    # 6. report
+    # report each kernel's launches in every query's checked run
+    by_query = {"Q1 cents": q1_counts, "Q1 double": qd_counts,
+                "Q6 cents": q6_counts}
+    by_query.update({label: run for label, run in joins["runs"].items()})
+    by_query.update({f"{q} cents": run for q, run in joins["more"].items()})
+    more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
+    check(more_b2 > 0, "no query of phase 5 launched B2")
     kernels = [
-        dict(name="grouped_sum_i32", route="cuda", source=SOURCE,
-             replaces="velox_tpu/ops/pallas_agg.py:32",
-             launches=qd_counts["grouped_sum_i32"],
-             **{k: b1[k] for k in ("max_abs_err", "ms", "device_ms",
-                                   "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}),
-        dict(name="grouped_multi_sum_i32", route="cuda", source=SOURCE,
-             replaces="velox_tpu/ops/pallas_agg.py:114",
-             launches=q1_counts["grouped_multi_sum_i32"],
-             **{k: b2[k] for k in ("max_abs_err", "ms", "device_ms",
-                                   "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}),
-    ]
+        dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+             launches=launches,
+             launches_by_query={k: r[name] for k, r in by_query.items()},
+             **{k: t[k] for k in ("max_abs_err", "ms", "device_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")})
+        for name, replaces, launches, t in (
+            ("grouped_sum_i32", "velox_tpu/ops/pallas_agg.py:32",
+             qd_counts["grouped_sum_i32"], b1),
+            ("grouped_multi_sum_i32", "velox_tpu/ops/pallas_agg.py:114",
+             q1_counts["grouped_multi_sum_i32"], b2))]
     check(all(k["max_abs_err"] == 0 for k in kernels), "kernel error")
     print(json.dumps({"kernels": kernels, "query_ms": times,
+                      "q1_q6_syncs": main_syncs,
                       "join_query_counts": joins["runs"],
+                      "more_queries": joins["more"],
                       "rank_forms_ms": joins["rank_forms_ms"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Shared set-up of the port's differential tests: seeded TPC-H tables,
-registered in both packages' catalogs from the same numpy arrays."""
+"""Shared set-up of the port's differential tests: seeded TPC-H tables
+and hand-made tables, registered in both packages' catalogs from the same
+numpy arrays, and the row-for-row comparison of two results."""
 
 import contextlib
 
@@ -10,7 +11,7 @@ from velox_tpu.io import catalog as jax_catalog
 from velox_tpu.utils.config import config as jax_config
 from velox_tpu_torch.io import catalog as torch_catalog
 from velox_tpu_torch.io.tpch import (
-    as_money_schema, lineitem_columns, tpch_columns,
+    as_money_schema, lineitem_columns, table_dictionaries, tpch_columns,
 )
 from velox_tpu_torch.utils.config import config as torch_config
 
@@ -64,26 +65,72 @@ def lineitem_in_both(narrow: bool, money: str, sf: float = SF,
 
 @contextlib.contextmanager
 def tables_in_both(narrow: bool, money: str, sf: float = SF,
-                   batch_rows: int = BATCH_ROWS):
-    """Register seeded lineitem, orders and customer in both catalogs
-    under ``narrow``; drop every table and restore both configs
+                   batch_rows: int = BATCH_ROWS, tables=None):
+    """Register seeded TPC-H ``tables`` (default: all eight) in both
+    catalogs under ``narrow``; drop every table and restore both configs
     afterwards. Yields the generated cents columns per table and the
     dictionaries."""
     old = (jax_config.narrow_lanes, torch_config.narrow_lanes)
     jax_config.narrow_lanes = torch_config.narrow_lanes = narrow
-    tables, dictionaries = tpch_columns(sf, SEED)
+    data, dictionaries = tpch_columns(sf, SEED, tables)
     try:
-        for name, columns in tables.items():
-            dicts = {c: v for c, v in dictionaries.items() if c in columns}
+        for name, columns in data.items():
+            dicts = table_dictionaries(columns, dictionaries)
             cols, overrides = as_money_schema(columns, money)
             torch_catalog.register_columns(
                 name, cols, dicts, batch_rows, overrides, device="cpu")
             table, overrides = arrow_table(columns, dicts, money)
             jax_catalog.register_arrow(name, table, batch_rows,
                                        decimal_overrides=overrides)
-        yield tables, dictionaries
+        yield data, dictionaries
     finally:
-        for name in tables:
+        for name in data:
             jax_catalog.drop_table(name)
             torch_catalog.drop_table(name)
         jax_config.narrow_lanes, torch_config.narrow_lanes = old
+
+
+def assert_same(got: dict, exp: dict, what: str = "") -> None:
+    """Row for row: DOUBLE columns to ``rtol=1e-9``, every other column
+    (integers, decimals, dates, strings, nulls) exactly."""
+    assert list(got) == list(exp), what
+    for c in exp:
+        assert len(got[c]) == len(exp[c]), f"{what} {c}"
+        floats = [v for v in exp[c] if isinstance(v, float)]
+        if floats:
+            assert [v is None for v in got[c]] == \
+                [v is None for v in exp[c]], f"{what} {c}"
+            np.testing.assert_allclose(
+                [v for v in got[c] if v is not None],
+                [v for v in exp[c] if v is not None], rtol=1e-9,
+                err_msg=f"{what} {c}")
+        else:
+            assert got[c] == exp[c], f"{what} {c}"
+
+
+@contextlib.contextmanager
+def table_in_both(name, columns, dictionaries=None, overrides=None,
+                  batch_rows: int = 128):
+    """Register one hand-made table in both catalogs: string columns as
+    int32 codes into ``dictionaries`` (-1 is NULL), integer columns named
+    in ``overrides`` as unscaled decimals."""
+    dictionaries = dictionaries or {}
+    torch_catalog.register_columns(name, columns, dictionaries, batch_rows,
+                                   overrides, device="cpu")
+    arrays = {}
+    for c, v in columns.items():
+        if c in dictionaries:
+            values = np.asarray(list(dictionaries[c]) + [None], dtype=object)
+            arrays[c] = pa.array(values[v].tolist(), type=pa.string())
+        elif v.dtype.kind == "M":
+            days = v.astype("datetime64[D]").astype(np.int64)
+            arrays[c] = pa.array(days.astype(np.int32), type=pa.date32())
+        else:
+            arrays[c] = pa.array(v)
+    jax_catalog.register_arrow(name, pa.table(arrays), batch_rows,
+                               decimal_overrides=overrides)
+    try:
+        yield
+    finally:
+        jax_catalog.drop_table(name)
+        torch_catalog.drop_table(name)

@@ -1,17 +1,20 @@
 """Relational operators of the ported slices.
 
-The port of the JAX package's ``exec/operators.py`` for TPC-H Q1, Q3, Q6
-and Q18: ``TableScanOp`` (with pushed dynamic filters), ``FilterOp``, the
+The port of the JAX package's ``exec/operators.py`` for the 22 TPC-H
+queries: ``TableScanOp`` (with pushed dynamic filters), ``FilterOp``, the
 scalar part of ``ProjectOp``, ``HashAggregationOp`` (kArray and the
-generic sort-based mode, SINGLE step), ``StreamingAggregationOp`` (with a
-fused HAVING), ``OrderByOp``, ``TopNOp``, ``LimitOp``, and the hash and
-merge joins (``JoinKeyCodec``, ``JoinBridge``, ``HashBuildOp``,
-``HashProbeOp`` for inner and left-semi joins, ``MergeJoinBuildOp``,
-``MergeJoinProbeOp``). Each runs eagerly on the device its batches live
-on. Blocking operators buffer in plain lists; spill stores wait for a
-later slice. Where a size depends on the data (a join's match total, a
-batch's group count) the operator reads it on the host once, through
-``utils/syncs.py``, which counts every such read.
+generic sort-based mode, SINGLE step, single-step ``count(distinct)``),
+``StreamingAggregationOp`` (with a fused HAVING), ``OrderByOp``,
+``TopNOp``, ``LimitOp``, the hash and merge joins (``JoinKeyCodec``,
+``JoinBridge``, ``HashBuildOp``, ``HashProbeOp`` for inner, left outer,
+left-semi, null-aware anti and anti joins with residual filters,
+``MergeJoinBuildOp``, ``MergeJoinProbeOp``), the cross join
+(``CrossBuildOp``, ``CrossProbeOp``) and ``EnforceSingleRowOp``. Each runs
+eagerly on the device its batches live on. Blocking operators buffer in
+plain lists; spill stores wait for a later slice. Where a size depends on
+the data (a join's match total, a batch's group count) the operator
+reads it on the host once, through ``utils/syncs.py``, which counts
+every such read.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from velox_tpu_torch.ops.groupby import (
 )
 from velox_tpu_torch.ops.join import (
     build_join_index, build_join_index_presorted, build_join_table,
-    expand_matches, match_total, probe_join_index,
+    expand_matches, output_counts, probe_join_index,
     probe_join_index_merge, probe_join_index_merge_repair, probe_join_table,
     valid_ascending_code,
 )
@@ -186,7 +189,8 @@ class HashAggregationOp(Operator):
       (``group_ids_sorted``) and partial accumulators with one slot per
       row of the batch's capacity (one slot when keyless); at output the
       partials of every batch are concatenated, grouped again and
-      combined. Groups come out in key order (NULLS LAST).
+      combined. Groups come out in key order (NULLS LAST). A node with a
+      ``count(distinct x)`` always takes this mode.
     """
 
     blocking = True
@@ -201,8 +205,7 @@ class HashAggregationOp(Operator):
         self.specs = list(node.aggregates)
         self.agg_names = list(node.agg_names)
         self.fns = [lookup_aggregate(s.fn) for s in self.specs]
-        if any(s.distinct for s in self.specs):
-            raise NotImplementedError("distinct aggregates are not ported")
+        self.has_distinct = any(s.distinct for s in self.specs)
         if any(isinstance(s.arg, tuple) for s in self.specs):
             raise NotImplementedError(
                 "multi-argument aggregates are not ported")
@@ -248,7 +251,7 @@ class HashAggregationOp(Operator):
     def decide_mode_dicts(self, key_dicts) -> str:
         if self._mode is not None:
             return self._mode
-        if self.keys:
+        if self.keys and not self.has_distinct:
             dicts = [key_dicts.get(k) for k in self.keys]
             if all(d is not None for d in dicts):
                 prod = 1
@@ -390,33 +393,46 @@ class HashAggregationOp(Operator):
         """Per-batch generic step: (cols, sel) -> (group keys, partial
         lanes, group selection, distinct representatives). Keyless: one
         slot and no sort; keyed: ``group_ids_sorted`` and one slot per
-        row of the batch's capacity."""
+        row of the batch's capacity. A distinct aggregate accumulates
+        nothing here: its batch's distinct (keys, arg) rows are kept for
+        the merge (velox/exec/DistinctAggregations.h)."""
         keys = self.keys
+
+        def take_pairs(pairs, rows):
+            return [(v.index_select(0, rows),
+                     None if va is None else va.index_select(0, rows))
+                    for v, va in pairs]
 
         def fn(cols, sel):
             inputs = self._agg_inputs(cols, sel)
+            pairs = [cols[k] for k in keys]
             if not keys:
                 gids = torch.where(sel, torch.zeros((), dtype=torch.int32,
                                                     device=sel.device),
                                    torch.ones((), dtype=torch.int32,
                                               device=sel.device))
                 group_sel = torch.any(sel)[None]
-                lanes_out = [f.accumulate(accs, gids, vals, mask)
-                             for f, accs, (vals, mask) in zip(
-                                 self.fns, self._init_accs(1, sel.device),
-                                 inputs)]
-                return [], lanes_out, group_sel, [None] * len(self.specs)
-            pairs = [cols[k] for k in keys]
-            gids, group_rows, group_sel, _ = group_ids_sorted(pairs, sel)
-            lanes_out = [f.accumulate(accs, gids, vals, mask)
-                         for f, accs, (vals, mask) in zip(
-                             self.fns, self._init_accs(sel.shape[0],
-                                                       sel.device),
-                             inputs)]
-            gkeys = [(v.index_select(0, group_rows),
-                      None if va is None else va.index_select(0, group_rows))
-                     for v, va in pairs]
-            return gkeys, lanes_out, group_sel, [None] * len(self.specs)
+                acc_cap = 1
+            else:
+                gids, group_rows, group_sel, _ = group_ids_sorted(pairs, sel)
+                acc_cap = sel.shape[0]
+            lanes_out = [None if spec.distinct
+                         else f.accumulate(accs, gids, vals, mask)
+                         for f, spec, accs, (vals, mask) in zip(
+                             self.fns, self.specs,
+                             self._init_accs(acc_cap, sel.device), inputs)]
+            dreps = []
+            for spec, (vals, mask) in zip(self.specs, inputs):
+                if not spec.distinct:
+                    dreps.append(None)
+                    continue
+                _, drows, dsel, _ = group_ids_sorted(
+                    pairs + [(vals, None)], mask)
+                dreps.append({"keys": take_pairs(pairs, drows),
+                              "arg": vals.index_select(0, drows),
+                              "sel": dsel})
+            gkeys = take_pairs(pairs, group_rows) if keys else []
+            return gkeys, lanes_out, group_sel, dreps
 
         return fn
 
@@ -473,11 +489,27 @@ class HashAggregationOp(Operator):
     def _merge_entries(self, entries: List[dict]) -> Batch:
         """Combine every batch's partials: concatenate them (padded to a
         power of two), group the concatenated keys again and combine the
-        lanes by the new group ids. Keyless: the single output row (slot
-        0), emitted even on empty input."""
+        lanes by the new group ids. Each distinct aggregate's
+        representatives follow the partials as a region of their own;
+        they are deduplicated again by (group, arg) and accumulated.
+        Keyless: the single output row (slot 0), emitted even on empty
+        input."""
         n_reg = sum(e["sel"].shape[0] for e in entries)
-        cap = round_capacity(n_reg)
-        pad = cap - n_reg
+        d_specs = [i for i, s in enumerate(self.specs) if s.distinct]
+        key_regions = [e["keys"] for e in entries]
+        sel_regions = [e["sel"] for e in entries]
+        d_bounds = {}
+        off = n_reg
+        for i in d_specs:
+            for e in entries:
+                key_regions.append(e["distinct"][i]["keys"])
+                sel_regions.append(e["distinct"][i]["sel"])
+            size = sum(e["distinct"][i]["sel"].shape[0] for e in entries)
+            d_bounds[i] = (off, off + size)
+            off += size
+        total = off
+        cap = round_capacity(total)
+        pad = cap - total
         device = entries[0]["sel"].device
 
         def cat(parts, fill=0):
@@ -487,9 +519,14 @@ class HashAggregationOp(Operator):
                                             device=device)]
             return torch.cat(parts)
 
+        def region(parts, lo, hi):
+            """``parts`` placed at [lo, hi) of a cap-long lane."""
+            return torch.cat([parts[0].new_zeros(lo)] + list(parts)
+                             + [parts[0].new_zeros(cap - hi)])
+
         keys = []
         for ki in range(len(self.keys)):
-            parts = [e["keys"][ki] for e in entries]
+            parts = [r[ki] for r in key_regions]
             vals = cat([v for v, _ in parts])
             valid = None
             if any(va is not None for _, va in parts):
@@ -497,7 +534,7 @@ class HashAggregationOp(Operator):
                              else torch.ones_like(v, dtype=torch.bool)
                              for v, va in parts], False)
             keys.append((vals, valid))
-        sel = cat([e["sel"] for e in entries], False)
+        sel = cat(sel_regions, False)
         gids, group_rows, group_sel, _ = group_ids_sorted(keys, sel)
         if not self.keys:
             group_sel = torch.zeros((cap,), dtype=torch.bool, device=device)
@@ -509,11 +546,26 @@ class HashAggregationOp(Operator):
                 kt, v.index_select(0, group_rows),
                 None if va is None else va.index_select(0, group_rows),
                 _key_dict_for(self._key_dicts, kt, k))
+        idx = torch.arange(cap, device=device)
         for ai, (name, fn, accs) in enumerate(zip(
                 self.agg_names, self.fns, self._init_accs(cap, device))):
-            lanes = tuple(cat([e["lanes"][ai][li] for e in entries])
-                          for li in range(len(fn.lanes)))
-            accs = fn.combine(tuple(accs), gids, lanes, sel)
+            if ai in d_bounds:
+                lo, hi = d_bounds[ai]
+                argv = region([e["distinct"][ai]["arg"] for e in entries],
+                              lo, hi)
+                rsel = sel & (idx >= lo) & (idx < hi)
+                _, drows, dsel, _ = group_ids_sorted(
+                    [(gids, None), (argv, None)], rsel)
+                rep = torch.zeros(cap + 1, dtype=torch.bool, device=device)
+                rep[torch.where(dsel, drows, torch.full_like(drows, cap))] \
+                    = True
+                accs = fn.accumulate(tuple(accs), gids, argv, rep[:cap])
+            else:
+                lanes = tuple(region([e["lanes"][ai][li] for e in entries],
+                                     0, n_reg)
+                              for li in range(len(fn.lanes)))
+                accs = fn.combine(tuple(accs), gids, lanes,
+                                  sel & (idx < n_reg))
             vals, valid = fn.extract(accs, group_sel)
             cols[name] = Column(self.output_type.find_child(name), vals,
                                 valid)
@@ -579,6 +631,9 @@ class StreamingAggregationOp(HashAggregationOp):
         super().__init__(node)
         if not self.keys:
             raise ValueError("keyless aggregation has no streams to close")
+        if self.has_distinct:
+            raise NotImplementedError(
+                "distinct aggregates stream nowhere: aggregate them")
         for spec, fn in zip(self.specs, self.fns):
             if not fn.scannable:
                 raise NotImplementedError(
@@ -1022,6 +1077,9 @@ class JoinBridge:
         self.n_active = None
         self.tables = ()   # kArray (tfirst, tcount) when the range is small
         self.key_lo = 0
+        #: 0-d device bool: some live build row has a null key (read on
+        #: the host only by the null-aware anti join)
+        self.build_has_null_key: Optional[torch.Tensor] = None
         #: a build spilled to host partitions (no spill in this port yet)
         self.spill_parts = None
         self.on_ready: List[Callable] = []
@@ -1102,19 +1160,46 @@ def build_bridge_state(bridge: JoinBridge, node, big: Batch,
         sorted_keys, perm, n_active)
     bridge.tables = tables
     bridge.key_lo = rng_hint[0] if rng_hint else 0
+    bridge.build_has_null_key = (None if null_valid is None
+                                 else (big.sel & ~null_valid).any())
     bridge.mark_ready()
 
 
-class HashProbeOp(Operator):
-    """velox/exec/HashProbe.cpp, inner and left-semi joins: per probe
-    batch, the (first, count) match runs from the kArray table when the
-    build range is small, else from a binary search (or, in a merge join
-    over an ascending probe lane, the flipped merge probe). A semi join
-    only narrows the batch's selection. An inner join reads the match
-    total on the host (one sync), expands the runs probe-major and
-    gathers both sides' columns."""
+def _join_filter_schema(node):
+    lt, rt = node.left.output_type, node.right.output_type
+    return row_type(list(lt.names) + list(rt.names),
+                    list(lt.children) + list(rt.children))
 
-    _SUPPORTED = (JoinType.INNER, JoinType.LEFT_SEMI)
+
+def _expr_fields(expr) -> set:
+    from velox_tpu_torch.expr.ir import FieldRef
+
+    if isinstance(expr, FieldRef):
+        return {expr.name}
+    out = set()
+    for c in expr.children:
+        out |= _expr_fields(c)
+    return out
+
+
+class HashProbeOp(Operator):
+    """velox/exec/HashProbe.cpp: inner, left outer, left-semi, null-aware
+    anti (NOT IN) and anti (NOT EXISTS) joins, each with an optional
+    residual filter (inner, semi and anti). Per probe batch, the (first,
+    count) match runs come from the kArray table when the build range is
+    small, else from a binary search (or, in a merge join over an
+    ascending probe lane, the flipped merge probe). Unfiltered semi and
+    anti joins only narrow the batch's selection. The other forms read
+    the match total on the host (one sync) and expand the runs
+    probe-major: a left join emits one row with null build columns for a
+    probe row without a match; a filter is evaluated on every match pair,
+    then reduced per probe row for semi and anti. An expansion of more
+    than ``_EXPAND_CHUNK`` pairs runs in chunks of whole probe rows, so a
+    probe batch never holds more pairs than that at once."""
+
+    _SUPPORTED = (JoinType.INNER, JoinType.LEFT, JoinType.LEFT_SEMI,
+                  JoinType.ANTI, JoinType.ANTI_SIMPLE)
+    _SEMI_LIKE = (JoinType.LEFT_SEMI, JoinType.ANTI, JoinType.ANTI_SIMPLE)
 
     #: value sets at most this large push as exact sorted IN-tables
     _SET_PUSH_MAX = 4096
@@ -1122,6 +1207,8 @@ class HashProbeOp(Operator):
     _STR_SET_MAX = 100
     #: build sides beyond this capacity push nothing (host copy cost)
     _PUSH_CAP_MAX = 1 << 21
+    #: most match pairs one expansion holds
+    _EXPAND_CHUNK = 1 << 24
 
     def __init__(self, node, bridge: JoinBridge):
         super().__init__(node)
@@ -1129,9 +1216,14 @@ class HashProbeOp(Operator):
             raise NotImplementedError(
                 f"{node.join_type.value} joins are not ported to "
                 "velox_tpu_torch yet")
+        self._filter = None
         if node.filter is not None:
-            raise NotImplementedError(
-                "join filters are not ported to velox_tpu_torch yet")
+            if node.join_type == JoinType.LEFT:
+                raise NotImplementedError(
+                    "filters on left joins are not ported to "
+                    "velox_tpu_torch yet")
+            self._filter = ExprEvaluator([node.filter],
+                                         _join_filter_schema(node))
         self.bridge = bridge
         self.jt = node.join_type
         self._queue: collections.deque = collections.deque()
@@ -1139,6 +1231,7 @@ class HashProbeOp(Operator):
         #: applies
         self.pushdown_scan: Optional[TableScanOp] = None
         self._pushdown_done = False
+        self._build_null: Optional[bool] = None
         bridge.on_ready.append(self._on_build_ready)
 
     def _on_build_ready(self) -> None:
@@ -1223,7 +1316,8 @@ class HashProbeOp(Operator):
         return False
 
     def _runs(self, batch: Batch):
-        """(first, count) per probe row."""
+        """(first, count) per probe row, and the probe key's SQL
+        null-ness (None when no key can be null)."""
         br = self.bridge
         node = self.node
         key_cols = [(batch.column(k).values, batch.column(k).valid)
@@ -1236,19 +1330,93 @@ class HashProbeOp(Operator):
             # kArray first: two table gathers beat any search
             return probe_join_table(br.tables[0], br.tables[1], br.key_lo,
                                     key, _and_valid(null_valid, match_valid),
-                                    sel)
+                                    sel), null_valid
         flip = self._probe_sorted(batch)
         if flip == "repair":
             # only rows outside the lane order (padding, null keys) take
             # the fill; match_valid folds in after it
             return probe_join_index_merge_repair(
                 br.sorted_keys, br.n_active, key, null_valid, sel,
-                match_valid=match_valid)
+                match_valid=match_valid), null_valid
         valid = _and_valid(null_valid, match_valid)
         if flip:
             return probe_join_index_merge(br.sorted_keys, br.n_active, key,
-                                          valid, sel)
-        return probe_join_index(br.sorted_keys, br.n_active, key, valid, sel)
+                                          valid, sel), null_valid
+        return probe_join_index(br.sorted_keys, br.n_active, key, valid,
+                                sel), null_valid
+
+    def _build_has_null(self) -> bool:
+        """Whether a live build row has a null key (one host read)."""
+        if self._build_null is None:
+            flag = self.bridge.build_has_null_key
+            self._build_null = (flag is not None
+                                and bool(syncs.to_int(flag)))
+        return self._build_null
+
+    def _semi_sel(self, sel, hits, null_valid):
+        """A semi or anti join's new selection from each probe row's
+        count of (passing) matches."""
+        if self.jt == JoinType.LEFT_SEMI:
+            return sel & (hits > 0)
+        if self.jt == JoinType.ANTI_SIMPLE:
+            return sel & (hits == 0)
+        # null-aware NOT IN: a null build key empties the result, a null
+        # probe key drops its row, an unmatchable non-null key survives
+        if self._build_has_null():
+            return torch.zeros_like(sel)
+        out = sel & (hits == 0)
+        return out if null_valid is None else out & null_valid
+
+    def _expansions(self, first, count, emit):
+        """``expand_matches`` over at most ``_EXPAND_CHUNK`` pairs at a
+        time: yields ``(probe_rows, build_rows, matched, out_sel, n)``.
+        The match total is one host read; a larger expansion cuts the
+        probe rows where the running total crosses each multiple of the
+        chunk (one more read) and reads each chunk's total."""
+        br = self.bridge
+        e = output_counts(count, emit).to(torch.int64)
+        total = syncs.to_int(e.sum())
+        if total == 0:
+            return
+        if total <= self._EXPAND_CHUNK:
+            yield expand_matches(first, count, br.perm,
+                                 round_capacity(total), emit) + (total,)
+            return
+        cum = torch.cumsum(e, 0)
+        targets = torch.arange(self._EXPAND_CHUNK, total, self._EXPAND_CHUNK,
+                               device=e.device)
+        cuts = syncs.to_numpy(torch.searchsorted(cum, targets, right=True))
+        rows = torch.arange(e.shape[0], device=e.device)
+        lo = 0
+        for hi in sorted(set(cuts.tolist()) | {e.shape[0]}):
+            hi = max(hi, lo + 1)
+            if hi > e.shape[0] or lo >= e.shape[0]:
+                break
+            inr = (rows >= lo) & (rows < hi)
+            count_c = torch.where(inr, count, torch.zeros_like(count))
+            emit_c = None if emit is None else emit & inr
+            n = syncs.to_int(torch.where(inr, e, torch.zeros_like(e)).sum())
+            lo = hi
+            if n:
+                yield expand_matches(first, count_c, br.perm,
+                                     round_capacity(n), emit_c) + (n,)
+
+    def _pairs_batch(self, batch: Batch, names, probe_rows, build_rows,
+                     matched, out_sel, n) -> Batch:
+        """The expanded pairs' columns ``names``: probe columns gathered
+        by probe row, build columns by build row, valid only where a
+        match exists."""
+        left = set(self.node.left.output_type.names)
+        cols = {}
+        for name in names:
+            if name in left:
+                cols[name] = batch.column(name).gather(probe_rows)
+            else:
+                c = self.bridge.build_batch.column(name).gather(build_rows)
+                cols[name] = Column(c.dtype, c.values,
+                                    _and_valid(c.valid, matched),
+                                    c.dictionary, c.stats)
+        return Batch(cols, out_sel, n)
 
     def add_input(self, batch: Batch) -> None:
         br = self.bridge
@@ -1259,30 +1427,43 @@ class HashProbeOp(Operator):
             raise RuntimeError("probe before the build finished")
         if not self._pushdown_done:
             self._push_dynamic_filter()
-        first, count = self._runs(batch)
+        (first, count), null_valid = self._runs(batch)
         out_names = self.output_type.names
-        if self.jt == JoinType.LEFT_SEMI:
-            b = batch.with_sel(batch.sel & (count > 0))
-            self._queue.append(b.project(out_names))
+        semi = self.jt in self._SEMI_LIKE
+        if semi and self._filter is None:
+            sel = self._semi_sel(batch.sel, count, null_valid)
+            self._queue.append(batch.with_sel(sel).project(out_names))
             return
-        total = syncs.to_int(match_total(count))
-        if total == 0:
-            return
-        out_cap = round_capacity(total)
-        probe_rows, build_rows, matched, out_sel = expand_matches(
-            first, count, br.perm, out_cap)
-        left = set(self.node.left.output_type.names)
-        cols = {}
-        for n in out_names:
-            if n in left:
-                cols[n] = batch.column(n).gather(probe_rows)
+        emit = batch.sel if self.jt == JoinType.LEFT else None
+        names = list(out_names)
+        if self._filter is not None:
+            names = list(dict.fromkeys(
+                names + sorted(_expr_fields(self.node.filter))))
+        hits = None
+        if semi:
+            # per probe row: its match pairs that pass the filter
+            hits = torch.zeros(batch.capacity + 1, dtype=torch.int32,
+                               device=batch.device)
+        for probe_rows, build_rows, matched, out_sel, n in self._expansions(
+                first, count, emit):
+            pairs = self._pairs_batch(batch, names, probe_rows, build_rows,
+                                      matched, out_sel, n)
+            if self._filter is None:
+                self._queue.append(pairs)
+                continue
+            passing = self._filter.filter_sel(pairs) & matched
+            if semi:
+                hits.index_add_(0, torch.where(
+                    passing, probe_rows,
+                    torch.full_like(probe_rows, batch.capacity)),
+                    passing.to(torch.int32))
             else:
-                c = br.build_batch.column(n).gather(build_rows)
-                # build columns are valid only where a match exists
-                cols[n] = Column(c.dtype, c.values,
-                                 _and_valid(c.valid, matched),
-                                 c.dictionary, c.stats)
-        self._queue.append(Batch(cols, out_sel, total))
+                self._queue.append(
+                    pairs.with_sel(passing).project(out_names))
+        if semi:
+            sel = self._semi_sel(batch.sel, hits[:batch.capacity],
+                                 null_valid)
+            self._queue.append(batch.with_sel(sel).project(out_names))
 
     def get_output(self) -> Optional[Batch]:
         return self._queue.popleft() if self._queue else None
@@ -1318,3 +1499,143 @@ class MergeJoinProbeOp(HashProbeOp):
         ok = batch.sel if col.valid is None else batch.sel & col.valid
         code = syncs.to_int(valid_ascending_code(col.values, ok))
         return {0: False, 1: "repair", 2: "raw"}[code]
+
+
+# ------------------------------------------------------------- cross join
+
+def _front_packed(batch: Batch) -> Tuple[Batch, int]:
+    """The active rows, in order, at the front of a right-sized batch,
+    and their count (one host sync)."""
+    from velox_tpu_torch.ops.sort import pack_indices
+
+    count = batch.selected_count()
+    cap = min(round_capacity(max(count, 1)), batch.capacity)
+    idx = pack_indices(batch.sel)[:cap]
+    return batch.gather(idx, torch.arange(cap, device=batch.device) < count,
+                        count), count
+
+
+class CrossBuildOp(Operator):
+    """velox/exec/NestedLoopJoinBuild.h:33: sink the (small) build side,
+    its active rows packed to the front."""
+
+    blocking = True
+
+    def __init__(self, node, bridge: JoinBridge):
+        super().__init__(node)
+        self.bridge = bridge
+        self._buffer: List[Batch] = []
+        self._device: Optional[torch.device] = None
+
+    def add_input(self, batch: Batch) -> None:
+        self._device = batch.device
+        self._buffer.append(batch)
+
+    def no_more_input(self) -> None:
+        if self.no_more_input_seen:
+            return
+        super().no_more_input()
+        node = self.bridge.node
+        batches, self._buffer = self._buffer, []
+        if batches:
+            big = concat_batches(batches)
+        else:
+            big = Batch.empty_like(node.right.output_type, round_capacity(1),
+                                   self._device or plan_device(node.right))
+        self.bridge.build_batch, self.bridge.n_active = _front_packed(big)
+        self.bridge.mark_ready()
+
+    def get_output(self) -> Optional[Batch]:
+        return None
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen
+
+
+class CrossProbeOp(Operator):
+    """velox/exec/NestedLoopJoinProbe.h:68: every active probe row with
+    every build row (probe-major), then the join filter."""
+
+    def __init__(self, node, bridge: JoinBridge):
+        super().__init__(node)
+        if node.join_type != JoinType.INNER:
+            raise NotImplementedError(
+                f"{node.join_type.value} nested-loop joins are not ported "
+                "to velox_tpu_torch yet")
+        self.bridge = bridge
+        self._filter = (ExprEvaluator([node.filter], _join_filter_schema(node))
+                        if node.filter is not None else None)
+        self._queue: collections.deque = collections.deque()
+
+    def add_input(self, batch: Batch) -> None:
+        br = self.bridge
+        if not br.ready:
+            raise RuntimeError("probe before the build finished")
+        nb = br.n_active
+        if nb == 0:
+            return
+        probe, n_probe = _front_packed(batch)
+        if n_probe == 0:
+            return
+        total = n_probe * nb
+        cap = round_capacity(total)
+        j = torch.arange(cap, device=batch.device)
+        probe_rows = j // nb
+        build_rows = j % nb
+        cols = {n: probe.column(n).gather(probe_rows)
+                for n in self.node.left.output_type.names}
+        cols.update({n: br.build_batch.column(n).gather(build_rows)
+                     for n in self.node.right.output_type.names})
+        joined = Batch(cols, j < total, total)
+        if self._filter is not None:
+            joined = joined.with_sel(self._filter.filter_sel(joined))
+        self._queue.append(joined.project(self.output_type.names))
+
+    def get_output(self) -> Optional[Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen and not self._queue
+
+
+# ------------------------------------------------------------------- misc
+
+class EnforceSingleRowOp(Operator):
+    """velox/core/PlanNode.h:5069: the scalar-subquery guard. More than
+    one input row raises; no input row gives one all-null row."""
+
+    blocking = True
+
+    def __init__(self, node):
+        super().__init__(node)
+        self._buffer: List[Batch] = []
+        self._emitted = False
+        self._device: Optional[torch.device] = None
+
+    def add_input(self, batch: Batch) -> None:
+        self._device = batch.device
+        self._buffer.append(batch)
+
+    def get_output(self) -> Optional[Batch]:
+        if not self.no_more_input_seen or self._emitted:
+            return None
+        self._emitted = True
+        total = sum(b.selected_count() for b in self._buffer)
+        if total > 1:
+            raise RuntimeError(
+                f"Expected single row of input. Received {total} rows.")
+        if total == 1:
+            return concat_batches(self._buffer)
+        cap = round_capacity(1)
+        device = self._device or plan_device(self.node)
+        empty = Batch.empty_like(self.output_type, cap, device)
+        cols = {n: Column(c.dtype, c.values,
+                          torch.zeros(cap, dtype=torch.bool, device=device),
+                          c.dictionary)
+                for n, c in empty.columns.items()}
+        sel = torch.zeros(cap, dtype=torch.bool, device=device)
+        sel[0] = True
+        return Batch(cols, sel)
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen and self._emitted

@@ -2,9 +2,9 @@
 
 The port of ``velox_tpu/exec/task.py`` for the operators of the ported
 slices. ``LocalPlanner`` splits the plan into pipelines at join builds
-(velox/exec/LocalPlanner.cpp mustStartNewPipeline): each join's build
-side becomes a pipeline ending in a build sink that publishes a
-``JoinBridge``; build pipelines run to completion first, in creation
+(velox/exec/LocalPlanner.cpp mustStartNewPipeline): each hash, merge or
+cross join's build side becomes a pipeline ending in a build sink that
+publishes a ``JoinBridge``; build pipelines run to completion first, in creation
 order (a topological order of the bridges), then the output pipeline
 streams. Each chain is offered to ``maybe_fuse`` (``exec/fused.py``).
 ``run_plan`` returns the result as a dict of Python lists (there is no
@@ -18,14 +18,15 @@ from typing import Dict, Iterator, List
 from velox_tpu_torch.vector.batch import Batch
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.operators import (
-    FilterOp, HashAggregationOp, HashBuildOp, HashProbeOp, JoinBridge,
-    LimitOp, MergeJoinBuildOp, MergeJoinProbeOp, OrderByOp, ProjectOp,
+    CrossBuildOp, CrossProbeOp, EnforceSingleRowOp, FilterOp,
+    HashAggregationOp, HashBuildOp, HashProbeOp, JoinBridge, LimitOp,
+    MergeJoinBuildOp, MergeJoinProbeOp, OrderByOp, ProjectOp,
     StreamingAggregationOp, TableScanOp, TopNOp,
 )
 from velox_tpu_torch.plan.nodes import (
-    AggregationNode, FilterNode, HashJoinNode, JoinType, LimitNode,
-    MergeJoinNode, OrderByNode, PlanNode, ProjectNode,
-    StreamingAggregationNode, TableScanNode, TopNNode,
+    AggregationNode, CrossJoinNode, EnforceSingleRowNode, FilterNode,
+    HashJoinNode, JoinType, LimitNode, MergeJoinNode, OrderByNode, PlanNode,
+    ProjectNode, StreamingAggregationNode, TableScanNode, TopNNode,
 )
 
 _SIMPLE_OPERATORS = {
@@ -36,6 +37,7 @@ _SIMPLE_OPERATORS = {
     OrderByNode: OrderByOp,
     TopNNode: TopNOp,
     LimitNode: LimitOp,
+    EnforceSingleRowNode: EnforceSingleRowOp,
 }
 
 #: join types whose probe can push a build-side filter into its scan
@@ -85,6 +87,14 @@ class LocalPlanner:
                     and node.join_type in _PUSHDOWN_JOINS):
                 probe.pushdown_scan = chain[0]
             chain.append(probe)
+            return chain
+        if isinstance(node, CrossJoinNode):
+            bridge = JoinBridge(node)
+            build_chain = self._lower(node.right)
+            build_chain.append(CrossBuildOp(node, bridge))
+            self.pipelines.append(Pipeline(build_chain, is_output=False))
+            chain = self._lower(node.left)
+            chain.append(CrossProbeOp(node, bridge))
             return chain
         cls = _SIMPLE_OPERATORS.get(type(node))
         if cls is None:

@@ -1,15 +1,18 @@
 """Expression compilation: typed IR -> eager torch evaluation.
 
-The subset of the JAX package's ``expr/compiler.py`` that TPC-H Q1 and Q6
-need, with the same three phases:
+The subset of the JAX package's ``expr/compiler.py`` that the 22 TPC-H
+queries need, with the same three phases:
 
 1. ``resolve_types``: bind FieldRefs against an input schema, resolve call
    result types, insert implicit numeric-widening casts and decimal
    rescales (SignatureBinder analog, velox/expression/SignatureBinder.h).
 2. ``bind_strings``: string compares and ``in`` lists against literals
    become integer compares on the dictionary codes (the catalog's
-   dictionaries are sorted, so codes are ranks); string columns otherwise
-   pass through.
+   dictionaries are sorted, so codes are ranks); ``like`` becomes a
+   lookup of a per-value match table, ``substr`` and a string-valued
+   ``if`` a ``DictTransform`` (a gather into the codes of a new sorted
+   dictionary), each computed on the host once per distinct value;
+   string columns otherwise pass through.
 3. ``widen_decimal_arith`` then evaluation over ``(values, valid)`` pairs
    with common-subexpression memoization. There is no tracing: every
    node runs as torch ops on the device of the input tensors.
@@ -21,19 +24,48 @@ every default-null call promotes its operands to one dtype first.
 
 from __future__ import annotations
 
+import re
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from velox_tpu_torch import torch_dtype
-from velox_tpu_torch.types import BOOLEAN, DOUBLE, DataType, INTEGER
+from velox_tpu_torch.types import BOOLEAN, DOUBLE, DataType, INTEGER, VARCHAR
 from velox_tpu_torch.types.types import (
     DecimalType, RowType, TypeKind, common_numeric_type,
 )
 from velox_tpu_torch.expr.ir import Call, Cast, Expr, FieldRef, Literal, TryExpr
 from velox_tpu_torch.functions.registry import lookup_function
 from velox_tpu_torch.functions.scalar import DeviceTable
+
+
+
+@dataclass(frozen=True, eq=False)
+class DictTransform(Expr):
+    """A string function applied to a dictionary column at bind time: run
+    once per distinct dictionary value on the host, then on the device a
+    single int32 gather ``table[code + 1]`` into the codes of the new
+    sorted dictionary (velox/expression/Expr.cpp:1280 evalWithMemo
+    memoizes per base value; here the memo is precomputed)."""
+
+    codes: Expr = None          # type: ignore[assignment]
+    table: object = None        # np.ndarray: old code + 1 -> new code
+    dictionary: object = None   # vector.column.Dictionary of the results
+
+    @property
+    def children(self):
+        return (self.codes,)
+
+    # identity semantics: two same-typed transforms must not collide in
+    # the evaluation memo
+    def __eq__(self, other):
+        return self is other
+
+    def __hash__(self):
+        return id(self)
+
 
 _ARITH = {"plus", "minus", "multiply", "divide", "mod"}
 _COMPARE = {"eq", "neq", "lt", "lte", "gt", "gte"}
@@ -63,6 +95,9 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
     if isinstance(expr, Call):
         args = tuple(resolve_types(a, schema) for a in expr.args)
         name = expr.name
+        if name in ("substr", "substring"):
+            # bound to a dictionary transform in phase 2
+            return Call(VARCHAR, "substr", args)
         if any(a.dtype is not None and a.dtype.kind in (
                 TypeKind.INTERVAL_DAY_TIME, TypeKind.INTERVAL_YEAR_MONTH)
                for a in args):
@@ -72,6 +107,10 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
 
         if name in _ARITH or name in _COMPARE or name == "between":
             args = _unify_numeric(name, args)
+
+        if name in ("if", "switch"):
+            dtype = _branch_type(name, args)
+            return Call(dtype, name, _cast_branches(name, args, dtype))
 
         fn = lookup_function(name)
         if name in _ARITH and isinstance(args[0].dtype, DecimalType):
@@ -203,7 +242,154 @@ def _decimal_result(name: str, a: DataType, b: DataType) -> DataType:
     raise TypeError(name)
 
 
+def _branch_type(name: str, args) -> DataType:
+    """Common result type across value branches (Presto coerces all
+    branches of IF/CASE to a least common type)."""
+    if name == "if":
+        branches = list(args[1:])
+    else:  # switch: (c1, v1, c2, v2, ..., [else])
+        branches = list(args[1::2])
+        if len(args) % 2 == 1:
+            branches.append(args[-1])
+    types = [a.dtype for a in branches
+             if a.dtype is not None and a.dtype.kind != TypeKind.UNKNOWN]
+    t = types[0]
+    for u in types[1:]:
+        if u == t or not (t.is_numeric and u.is_numeric):
+            continue
+        if isinstance(t, DecimalType) or isinstance(u, DecimalType):
+            if t.is_floating or u.is_floating:
+                t = DOUBLE
+            elif isinstance(t, DecimalType) and isinstance(u, DecimalType):
+                t = DecimalType(TypeKind.DECIMAL,
+                                min(max(t.precision, u.precision) + 1, 18),
+                                max(t.scale, u.scale))
+            else:
+                t = t if isinstance(t, DecimalType) else u
+        else:
+            t = common_numeric_type(t, u)
+    return t
+
+
+def _cast_branches(name: str, args, dtype) -> Tuple[Expr, ...]:
+    """Make all value branches of if/switch share the result type."""
+    def c(a: Expr) -> Expr:
+        if a.dtype == dtype or a.dtype is None:
+            return a
+        if a.dtype.kind == TypeKind.UNKNOWN:  # null literal
+            return Literal(dtype, None)
+        return Cast(dtype, a, False)
+
+    if name == "if":
+        return (args[0],) + tuple(c(a) for a in args[1:])
+    out = list(args)
+    for i in range(1, len(out), 2):
+        out[i] = c(out[i])
+    if len(out) % 2 == 1:
+        out[-1] = c(out[-1])
+    return tuple(out)
+
+
 # ------------------------------------------------------------------ phase 2
+
+def _like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "^" + "".join(out) + "$"
+
+
+def _like_table(d, pattern: str) -> np.ndarray:
+    """Match of every dictionary value, behind False for code -1 (the
+    lookup gathers ``table[code + 1]``); kept with the dictionary."""
+    def make(d):
+        rx = re.compile(_like_to_regex(pattern))
+        table = np.zeros(len(d) + 1, dtype=np.bool_)
+        table[1:] = [rx.match(v) is not None for v in d.values.tolist()]
+        return table
+
+    return d.derived(("like", pattern), make)
+
+
+def _substr_transform(d, start: int, length: Optional[int]):
+    """(old code + 1 -> new code table, sorted result dictionary) of
+    ``substr(s, start[, length])`` over a dictionary; SQL is 1-based."""
+    from velox_tpu_torch.vector.column import Dictionary
+
+    def make(d):
+        lo = start - 1 if start >= 1 else start
+        out = [s[lo:] if length is None else s[lo:lo + length]
+               for s in d.values.tolist()]
+        uniq, inv = np.unique(np.asarray(out, dtype=object),
+                              return_inverse=True)
+        table = np.full(len(d) + 1, -1, dtype=np.int32)
+        table[1:] = inv.reshape(-1)
+        return table, Dictionary(list(uniq))
+
+    return d.derived(("substr", start, length), make)
+
+
+def _bind_substr(args, dictionaries) -> Expr:
+    src = _dict_source((args[0],), dictionaries)
+    if src is None:
+        raise TypeError("substr requires a dictionary-encoded input")
+    if not all(isinstance(a, Literal) for a in args[1:]):
+        raise TypeError("substr start/length must be literals")
+    codes_expr, d = src
+    length = int(args[2].value) if len(args) > 2 else None
+    table, nd = _substr_transform(d, int(args[1].value), length)
+    return DictTransform(VARCHAR, codes_expr, table, nd)
+
+
+def _bind_string_if(args, dictionaries, dtype) -> Optional[Expr]:
+    """if(cond, s1, s2) with string-valued branches stays dictionary
+    coded: the branch dictionaries (and any string literal) merge into one
+    sorted result dictionary, each branch's codes remap through a table,
+    and a NULL branch becomes code -1."""
+    from velox_tpu_torch.vector.column import Dictionary
+
+    cond, a, b = args
+
+    def info(x):
+        if isinstance(x, Literal):
+            if x.value is None:
+                return ("null", None, None)
+            if isinstance(x.value, str):
+                return ("lit", x.value, None)
+            return None
+        s = _dict_source((x,), dictionaries)
+        return None if s is None else ("dict", s[0], s[1])
+
+    ia, ib = info(a), info(b)
+    if ia is None or ib is None:
+        return None
+    values: set = set()
+    for kind, v, d in (ia, ib):
+        if kind == "lit":
+            values.add(v)
+        elif kind == "dict":
+            values.update(str(x) for x in d.values)
+    nd = Dictionary(sorted(values))
+
+    def branch(i):
+        kind, v, d = i
+        if kind == "null":
+            return Literal(INTEGER, -1)
+        if kind == "lit":
+            return Literal(INTEGER, nd.code_of(v))
+        remap = np.asarray([-1] + [nd.code_of(str(x)) for x in d.values],
+                           dtype=np.int32)
+        return DictTransform(INTEGER, v, remap, None)
+
+    codes = Call(INTEGER, "if", (cond, branch(ia), branch(ib)))
+    ident = np.concatenate([[-1], np.arange(len(nd))]).astype(np.int32)
+    return DictTransform(dtype, codes, ident, nd)
+
 
 def bind_strings(expr: Expr, dictionaries: Dict[str, "Dictionary"],
                  ranges: Optional[Dict[str, tuple]] = None) -> Expr:
@@ -212,7 +398,7 @@ def bind_strings(expr: Expr, dictionaries: Dict[str, "Dictionary"],
     ``eq``/``neq`` against a literal compare codes; range compares become
     rank compares (dictionaries are sorted, so codes are ranks).
     """
-    if isinstance(expr, (FieldRef, Literal)):
+    if isinstance(expr, (FieldRef, Literal, DictTransform)):
         return expr
     if isinstance(expr, Cast):
         return Cast(expr.dtype, bind_strings(expr.expr, dictionaries, ranges),
@@ -225,7 +411,18 @@ def bind_strings(expr: Expr, dictionaries: Dict[str, "Dictionary"],
 
     args = tuple(bind_strings(a, dictionaries, ranges) for a in expr.args)
     name = expr.name
+    if name == "substr":
+        return _bind_substr(args, dictionaries)
+    if (name == "if" and len(args) == 3 and expr.dtype is not None
+            and expr.dtype.is_string):
+        bound = _bind_string_if(args, dictionaries, expr.dtype)
+        if bound is not None:
+            return bound
     src = _dict_source(args, dictionaries)
+    if src is not None and name == "like":
+        codes_expr, d = src
+        return Call(BOOLEAN, "dict_lookup_bool", (
+            codes_expr, Literal(BOOLEAN, _like_table(d, args[1].value))))
     if src is not None and name == "in":
         codes_expr, d = src
         return Call(BOOLEAN, "in", (codes_expr, *[
@@ -271,6 +468,8 @@ def _dict_source(args, dictionaries):
             d = dictionaries.get(a.name)
             if d is not None:
                 return FieldRef(INTEGER, a.name), d
+        if isinstance(a, DictTransform):
+            return a, a.dictionary
     return None
 
 
@@ -460,11 +659,13 @@ class ExprSet:
         bound = [bind_strings(e, self.dictionaries, self.ranges)
                  for e in resolved]
         self.exprs = [widen_decimal_arith(e, self.ranges) for e in bound]
-        #: dictionary of each result column (string passthroughs)
+        #: dictionary of each result column (string passthroughs and
+        #: transforms)
         self.result_dictionaries = [
-            self.dictionaries.get(e.name)
-            if isinstance(e, FieldRef) and e.dtype is not None
-            and e.dtype.is_string else None
+            e.dictionary if isinstance(e, DictTransform)
+            else (self.dictionaries.get(e.name)
+                  if isinstance(e, FieldRef) and e.dtype is not None
+                  and e.dtype.is_string else None)
             for e in self.exprs]
         self._consts: Dict[tuple, ValuePair] = {}
 
@@ -509,9 +710,31 @@ class ExprSet:
         self._consts[key] = hit
         return hit
 
+    def _host_table(self, table: np.ndarray, device) -> torch.Tensor:
+        """A bind-time host table on ``device``, uploaded once per set."""
+        key = ("table", id(table), str(device))
+        hit = self._consts.get(key)
+        if hit is None:
+            hit = self._consts[key] = (torch.from_numpy(table).to(device),
+                                       table)   # keeps id(table) unique
+        return hit[0]
+
+    def _gather_codes(self, table: np.ndarray, codes, device):
+        """``table[code + 1]``: code -1 (null, padding) reads entry 0."""
+        t = self._host_table(table, device)
+        idx = codes.to(torch.int64).clamp(-1, t.shape[0] - 2) + 1
+        return t.index_select(0, idx.reshape(-1)).reshape(codes.shape)
+
     def _eval_inner(self, expr, arrays, memo, device) -> ValuePair:
         if isinstance(expr, FieldRef):
             return arrays[expr.name]
+        if isinstance(expr, DictTransform):
+            codes, valid = self._eval(expr.codes, arrays, memo, device)
+            return self._gather_codes(expr.table, codes, device), valid
+        if isinstance(expr, Call) and expr.name == "dict_lookup_bool":
+            codes, valid = self._eval(expr.args[0], arrays, memo, device)
+            return self._gather_codes(expr.args[1].value, codes,
+                                      device), valid
         if isinstance(expr, Literal):
             return self._literal(expr, device)
         if isinstance(expr, Cast):

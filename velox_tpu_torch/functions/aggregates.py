@@ -1,7 +1,7 @@
 """Aggregate functions as masked segment reductions, over torch.
 
-The port of the ``sum``/``count``/``avg`` part of the JAX package's
-``functions/aggregates.py``. An accumulator is a struct of tensors, one
+The port of the ``sum``/``count``/``avg``/``min``/``max`` part of the JAX
+package's ``functions/aggregates.py``. An accumulator is a struct of tensors, one
 per lane, of shape ``(num_groups,)``; accumulation is a scatter-add of
 the whole batch into them. Group ids outside ``[0, num_groups)`` (the
 sentinel of inactive rows) are dropped.
@@ -34,7 +34,7 @@ class AccLane:
     name: str
     dtype_of: Callable[[Optional[DataType]], np.dtype]
     init_of: Callable[[Optional[DataType]], object]
-    #: the associative reduction this lane is ("add"): the streaming
+    #: the associative reduction this lane is ("add", "min", "max"): the streaming
     #: aggregation's segmented-scan path needs one on every lane
     scan_op: Optional[str] = None
 
@@ -240,6 +240,76 @@ register_aggregate(AggregateFunction(
     lane_types=lambda t: (BIGINT,),
     lane_contribs=lambda values, mask, at: (mask.to(torch.int64),),
 ))
+
+
+# ------------------------------------------------------------------ min/max
+
+def _minmax_identity_for(dt: torch.dtype, is_min: bool):
+    if dt.is_floating_point:
+        return float("inf") if is_min else float("-inf")
+    if dt == torch.bool:
+        return is_min
+    info = torch.iinfo(dt)
+    return info.max if is_min else info.min
+
+
+def _minmax_identity(t: DataType, is_min: bool):
+    return _minmax_identity_for(torch_dtype(t.dtype), is_min)
+
+
+def scatter_minmax(acc: torch.Tensor, gids: torch.Tensor,
+                   values: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """``acc.at[gids].min(values, mode="drop")`` (or max)."""
+    G = acc.shape[0]
+    g = torch.where((gids >= 0) & (gids < G), gids,
+                    torch.full_like(gids, G)).long()
+    ext = torch.cat([acc, acc.new_full(
+        (1,), _minmax_identity_for(acc.dtype, is_min))])
+    ext.scatter_reduce_(0, g, values.to(acc.dtype),
+                        "amin" if is_min else "amax", include_self=True)
+    return ext[:G]
+
+
+def _make_minmax(name: str, is_min: bool) -> None:
+    def acc_fn(accs, gids, values, mask):
+        (m, cnt) = accs
+        v = _masked(values.to(m.dtype), mask,
+                    _minmax_identity_for(m.dtype, is_min))
+        return (scatter_minmax(m, gids, v, is_min),
+                scatter_add(cnt, gids, mask))
+
+    def combine_fn(accs, gids, lanes, mask):
+        (m, cnt) = accs
+        pm, pcnt = lanes
+        v = _masked(pm.to(m.dtype), mask,
+                    _minmax_identity_for(m.dtype, is_min))
+        return (scatter_minmax(m, gids, v, is_min),
+                scatter_add(cnt, gids, _masked(pcnt, mask, 0)))
+
+    register_aggregate(AggregateFunction(
+        name=name,
+        resolve_type=lambda t: t,
+        lanes=(
+            AccLane(name, lambda t: t.dtype,
+                    lambda t: _minmax_identity(t, is_min),
+                    scan_op="min" if is_min else "max"),
+            AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0,
+                    scan_op="add"),
+        ),
+        accumulate=acc_fn,
+        combine=combine_fn,
+        extract=lambda accs, gm: (accs[0],
+                                  torch.logical_and(gm, accs[1] > 0)),
+        lane_types=lambda t: (t, BIGINT),
+        lane_contribs=lambda values, mask, at: (
+            _masked(values.to(torch_dtype(at.dtype)), mask,
+                    _minmax_identity(at, is_min)),
+            mask.to(torch.int64)),
+    ))
+
+
+_make_minmax("min", True)
+_make_minmax("max", False)
 
 
 # ---------------------------------------------------------------------- avg

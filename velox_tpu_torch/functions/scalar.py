@@ -1,11 +1,16 @@
 """Scalar functions of the main path (Presto semantics), over torch.
 
-The part of the JAX package's ``functions/scalar.py`` that TPC-H Q1, Q3,
-Q6 and Q18 resolve: arithmetic, comparisons, ``between``, ``in``, Kleene
-``and``, and the dynamic-filter forms joins push into scans
+The part of the JAX package's ``functions/scalar.py`` that the 22 TPC-H
+queries resolve: arithmetic (integer division truncates toward zero, and
+a zero divisor gives NULL), comparisons, ``between``, ``in``, Kleene
+``and``/``or``, ``not``, ``if``/``switch`` (a NULL condition takes the
+next branch), ``year`` (Howard Hinnant's civil-from-days in integer
+lanes), and the dynamic-filter forms joins push into scans
 (``__in_table``, ``__bloom_contains``), with the same ``resolve_type``
 rules. Decimal arithmetic is typed by the expression compiler; the impls
-only see integer lanes.
+only see integer lanes. ``like`` and ``substr`` are rewritten into
+dictionary lookups when the compiler binds strings, so their impls only
+raise.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from velox_tpu_torch.types import BOOLEAN
+from velox_tpu_torch.types import BIGINT, BOOLEAN, VARCHAR
 from velox_tpu_torch.types.types import DecimalType, common_numeric_type
 from velox_tpu_torch.functions.registry import ScalarFunction, register_function
 
@@ -42,6 +47,31 @@ def _compare_type(args):
 register_function(ScalarFunction("plus", _arith_type, lambda a, b: a + b))
 register_function(ScalarFunction("minus", _arith_type, lambda a, b: a - b))
 register_function(ScalarFunction("multiply", _arith_type, lambda a, b: a * b))
+
+
+def _both_valid(a, va, b, vb):
+    return torch.logical_and(va if va is not None else _all_valid(a),
+                             vb if vb is not None else _all_valid(b))
+
+
+def _div_impl(pair0, pair1):
+    """Integers truncate toward zero and a zero divisor gives NULL;
+    floats divide as IEEE does."""
+    (a, va), (b, vb) = pair0, pair1
+    if not b.dtype.is_floating_point:
+        zero = b == 0
+        safe_b = torch.where(zero, torch.ones_like(b), b)
+        q = torch.div(torch.abs(a), torch.abs(safe_b), rounding_mode="floor")
+        vals = torch.where((a < 0) ^ (safe_b < 0), -q, q)
+        return vals, torch.logical_and(_both_valid(a, va, b, vb), ~zero)
+    vals = a / b
+    if va is None and vb is None:
+        return vals, None
+    return vals, _both_valid(a, va, b, vb)
+
+
+register_function(ScalarFunction(
+    "divide", _arith_type, _div_impl, default_nulls=False))
 
 # ------------------------------------------------------------- comparisons
 
@@ -83,9 +113,123 @@ def _kleene_and(*pairs):
     return vals, valid
 
 
+def _kleene_or(*pairs):
+    if all(va is None for _, va in pairs):
+        vals = pairs[0][0]
+        for v2, _ in pairs[1:]:
+            vals = torch.logical_or(vals, v2)
+        return vals, None
+    vals, valid = pairs[0]
+    if valid is None:
+        valid = _all_valid(vals)
+    vals = torch.logical_and(vals, valid)
+    true = vals
+    for v2, va2 in pairs[1:]:
+        if va2 is None:
+            va2 = _all_valid(v2)
+        t2 = torch.logical_and(va2, v2)
+        true = torch.logical_or(true, t2)
+        vals = torch.logical_or(vals, t2)
+        valid = torch.logical_or(true, torch.logical_and(valid, va2))
+    return vals, valid
+
+
+def _not_impl(pair):
+    vals, valid = pair
+    return torch.logical_not(vals), valid
+
+
+def _taken(cond_pair):
+    cv, cvalid = cond_pair
+    return cv if cvalid is None else torch.logical_and(cv, cvalid)
+
+
+def _if_impl(cond_pair, then_pair, *else_pair):
+    taken = _taken(cond_pair)
+    tv, tvalid = then_pair
+    if else_pair:
+        ev, evalid = else_pair[0]
+    else:
+        ev = torch.zeros_like(tv)
+        evalid = torch.zeros(tv.shape, dtype=torch.bool, device=tv.device)
+    vals = torch.where(taken, tv, ev)
+    if tvalid is None and evalid is None:
+        return vals, None
+    tvalid = tvalid if tvalid is not None else _all_valid(tv)
+    evalid = evalid if evalid is not None else _all_valid(ev)
+    return vals, torch.where(taken, tvalid, evalid)
+
+
+def _switch_impl(*pairs):
+    """switch(c1, v1, c2, v2, ..., [else]): the first true condition
+    wins."""
+    n = len(pairs)
+    v1 = pairs[1][0]
+    if n % 2 == 1:
+        vals, valid = pairs[-1]
+    else:
+        vals = torch.zeros_like(v1)
+        valid = torch.zeros(v1.shape, dtype=torch.bool, device=v1.device)
+    if valid is None:
+        valid = _all_valid(vals)
+    # fold back to front so the first condition has priority
+    for i in reversed(range(n // 2)):
+        taken = _taken(pairs[2 * i])
+        tv, tvalid = pairs[2 * i + 1]
+        vals = torch.where(taken, tv, vals)
+        valid = torch.where(taken, tvalid if tvalid is not None
+                            else _all_valid(tv), valid)
+    return vals, valid
+
+
 register_function(ScalarFunction(
     "and", lambda a: BOOLEAN, _kleene_and, default_nulls=False,
     dictionary_safe=True))
+register_function(ScalarFunction(
+    "or", lambda a: BOOLEAN, _kleene_or, default_nulls=False,
+    dictionary_safe=True))
+register_function(ScalarFunction(
+    "not", lambda a: BOOLEAN, _not_impl, default_nulls=False))
+register_function(ScalarFunction(
+    "if", lambda a: a[1], _if_impl, default_nulls=False))
+register_function(ScalarFunction(
+    "switch", lambda a: a[1], _switch_impl, default_nulls=False))
+
+
+# ------------------------------------------------------------ date parts
+
+def _civil_year(days):
+    """Year of a day number (Howard Hinnant's civil-from-days)."""
+    z = days.to(torch.int32) + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097
+    yoe = torch.div(doe - torch.div(doe, 1460, rounding_mode="floor")
+                    + torch.div(doe, 36524, rounding_mode="floor")
+                    - torch.div(doe, 146096, rounding_mode="floor"), 365,
+                    rounding_mode="floor")
+    doy = doe - (365 * yoe + torch.div(yoe, 4, rounding_mode="floor")
+                 - torch.div(yoe, 100, rounding_mode="floor"))
+    mp = torch.div(5 * doy + 2, 153, rounding_mode="floor")
+    return yoe + era * 400 + (mp >= 10)   # months 1-2 belong to y + 1
+
+
+register_function(ScalarFunction(
+    "year", lambda a: BIGINT, lambda a: _civil_year(a).to(torch.int64)))
+
+
+# ------------------------------------------------------ bound at bind time
+
+def _unbound(name):
+    def impl(*args):
+        raise RuntimeError(
+            f"{name} must be bound against a dictionary column "
+            "(expr/compiler.py bind_strings) before device evaluation")
+    return impl
+
+
+register_function(ScalarFunction("like", _compare_type, _unbound("like")))
+register_function(ScalarFunction(
+    "substr", lambda a: VARCHAR, _unbound("substr")))
 
 
 # ------------------------------------------------------------------ in

@@ -276,7 +276,10 @@ def probe_join_table(tfirst: Tensor, tcount: Tensor, lo: int,
     return first, count
 
 
-def _emit(count: Tensor, emit_unmatched: Optional[Tensor]) -> Tensor:
+def output_counts(count: Tensor, emit_unmatched: Optional[Tensor] = None
+                  ) -> Tensor:
+    """Output rows per probe row: its match count, or 1 for an unmatched
+    row that ``emit_unmatched`` (left outer) keeps."""
     if emit_unmatched is None:
         return count
     return torch.where(emit_unmatched & (count == 0),
@@ -287,7 +290,7 @@ def match_total(count: Tensor, emit_unmatched: Optional[Tensor] = None
                 ) -> Tensor:
     """0-d device tensor: the number of output rows (the caller reads it
     on the host to size the expansion)."""
-    return _emit(count, emit_unmatched).sum()
+    return output_counts(count, emit_unmatched).sum()
 
 
 def expand_matches(first: Tensor, count: Tensor, build_perm: Tensor,
@@ -299,7 +302,7 @@ def expand_matches(first: Tensor, count: Tensor, build_perm: Tensor,
     with ``matched`` False. Rows past the total are masked by
     ``out_sel``; ``out_cap`` must be at least ``match_total``."""
     device = first.device
-    emit = _emit(count, emit_unmatched).to(torch.int64)
+    emit = output_counts(count, emit_unmatched).to(torch.int64)
     offsets = torch.cumsum(emit, 0) - emit
     total = offsets[-1] + emit[-1]
     j = torch.arange(out_cap, device=device)

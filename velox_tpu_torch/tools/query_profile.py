@@ -5,9 +5,9 @@ and the device's busy share, on one CUDA card.
     python3 -m velox_tpu_torch.tools.query_profile [--sf 10] \
         [--queries 3,18] [--plans on,off] [--top 25]
 
-Registers lineitem, orders and customer at ``--sf`` on the card (decimal
+Registers the eight TPC-H tables at ``--sf`` on the card (decimal
 cents, narrow lanes, splits of 2^23 rows, the seed ``chip_smoke.py``
-uses). For each query and plan shape (``on``: ``optimize_plans``, merge
+uses); ``--queries`` takes any of the 22. For each query and plan shape (``on``: ``optimize_plans``, merge
 joins and streaming aggregation; ``off``: hash joins and the generic
 aggregation) it runs the query once to warm up, then:
 
@@ -63,7 +63,7 @@ def main() -> int:
             label = f"Q{q} SF{args.sf:g} optimize_plans={plan}"
 
             def run():
-                return run_plan(tpch_plan(q))
+                return run_plan(tpch_plan(q, args.sf))
 
             run()
             syncs.reset()

@@ -1,4 +1,4 @@
-"""TPC-H query plans ported so far (Q1, Q3, Q6, Q18)."""
+"""TPC-H query plans: all 22 queries, and the clustered Q3/Q18 variants."""
 
 from velox_tpu_torch.tpch.queries import (  # noqa: F401
     CLUSTERED_QUERIES, SUPPORTED_QUERIES, tpch_plan,

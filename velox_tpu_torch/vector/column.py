@@ -10,7 +10,7 @@ columns hold int32 codes into a host-side :class:`Dictionary`, with code
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,20 +20,36 @@ from velox_tpu_torch.types import DataType
 
 class Dictionary:
     """Host-side value table for string columns (a copy of the JAX
-    package's). Codes index ``values``; -1 is null/padding."""
+    package's). Codes index ``values``; -1 is null/padding.
 
-    __slots__ = ("values", "_index")
+    A dictionary never changes, so what is derived from its values (a
+    LIKE pattern's match table, a substr's code remap) is computed once
+    and kept with it (``derived``). The value -> code index is built at
+    the first ``code_of``: a 14M-value comment dictionary never needs
+    one."""
+
+    __slots__ = ("values", "_index", "_derived")
 
     def __init__(self, values: Sequence[str]):
         self.values = np.asarray(values, dtype=object)
-        self._index = {v: i for i, v in enumerate(self.values)}
+        self._index = None
+        self._derived = {}
 
     def __len__(self) -> int:
         return len(self.values)
 
     def code_of(self, value: str) -> int:
         """Code for a string literal, or -2 if absent (never matches)."""
+        if self._index is None:
+            self._index = {v: i for i, v in enumerate(self.values)}
         return self._index.get(value, -2)
+
+    def derived(self, key: tuple, make: Callable[["Dictionary"], object]):
+        """``make(self)``, computed once per ``key``."""
+        hit = self._derived.get(key)
+        if hit is None:
+            hit = self._derived[key] = make(self)
+        return hit
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         """Host-side gather codes -> strings (None for negative codes)."""
