@@ -42,9 +42,23 @@ Phases (any failure ends the run with a nonzero exit code):
    ``device_ms`` the device time of a call from CUDA graph replay (no
    host cost), beside its plain version, one ``index_add_`` over the
    same bins, and its bound (bytes moved / 3.35 TB/s); print the query
-   times, then the kernels as one JSON line (with each kernel's launches
-   in every query's checked run), the card line, and last the device
-   line ``{"ok": true, "device": {...}}``.
+   times;
+7. with the TPC-H tables dropped, generate the eight TPC-DS tables at
+   SF10 (``velox_tpu_torch.io.tpcds``, seed 7; store_sales 28.8M rows)
+   and register them on the card in splits of 2^23 rows; run the 15
+   ``SPEC_QUERIES`` (``optimize_plans`` on), each checked against its
+   numpy oracle (``velox_tpu_torch/tpcds/oracle.py``) with its host
+   syncs, B1/B2 launches and peak device memory counted, then timed and
+   profiled as in phase 5;
+8. over that store_sales, the window plans W1-W3
+   (``velox_tpu_torch/tpcds/window_plans.py``: the blocking window with
+   every function and frame, the streaming window, which the optimizer
+   must choose, TopNRowNumber, RowNumber, MarkDistinct, GroupId and
+   UnionAll), each result's arrays checked against a numpy oracle, then
+   timed, profiled and measured as the queries are; print the kernels
+   as one JSON line (with each kernel's launches in every checked run of
+   every phase), the card line, and last the device line
+   ``{"ok": true, "device": {...}}``. Each phase logs its seconds.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -703,47 +717,185 @@ def run_more_queries(tables, dicts, card: str, times: dict) -> dict:
     syncs and B1/B2 launches counted in that run, then timed (median of
     5 warm runs) and profiled once (device busy share). Returns the
     counts and times per query."""
-    import torch
-
     from velox_tpu_torch.exec import run_plan
-    from velox_tpu_torch.ops import grouped_sum as gs
     from velox_tpu_torch.tpch import tpch_plan
     from velox_tpu_torch.tpch.oracle import answer
-    from velox_tpu_torch.utils import syncs
 
     out = {}
     for q in MORE_QUERIES:
         t0 = time.perf_counter()
         want = answer(q, tables, dicts, SF)
         oracle_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        syncs.reset()
-        gs.reset_launches()
-        t0 = time.perf_counter()
-        got = run_plan(tpch_plan(q, SF))
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        run = {"syncs": syncs.count, **gs.launches,
-               "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
-               "above_tables_gb": (torch.cuda.max_memory_allocated()
-                                   - resident) / 2**30}
+        got, run = _peak_run(lambda: run_plan(tpch_plan(q, SF)))
         check_result(got, want, f"Q{q}")
         wall = wall_ms(lambda: run_plan(tpch_plan(q, SF)))
         busy = device_breakdown(lambda: run_plan(tpch_plan(q, SF)),
                                 f"q{q}_cents", wall, card, top=3)
         times[f"q{q}_cents"] = wall
         out[f"Q{q}"] = {**run, "wall_ms": wall, "busy_ms": busy,
-                        "first_run_ms": first_ms,
                         "rows": len(next(iter(want.values())))}
         log(f"Q{q} cents: {out[f'Q{q}']['rows']} rows equal to the oracle "
             f"({oracle_s:.3f} s on the host); host syncs {run['syncs']}, "
             f"launches B1 {run['grouped_sum_i32']} B2 "
             f"{run['grouped_multi_sum_i32']}; warm wall {wall} ms, busy "
-            f"{busy} ms (share {busy / wall}), first run {first_ms} ms; "
-            f"peak device memory {run['peak_gb']:.3f} GiB "
-            f"({run['above_tables_gb']:.3f} above the tables) on {card}")
+            f"{busy} ms (share {busy / wall}), first run "
+            f"{run['first_run_ms']} ms; peak device memory "
+            f"{run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} above "
+            f"the tables) on {card}")
+    return out
+
+
+# ---------------------------------------------------- TPC-DS, windows
+
+DS_SF = 10
+DS_SEED = 7                        # the JAX package's default seed
+
+
+def _peak_run(fn):
+    """One run of ``fn``: its result, and its host syncs, B1/B2 launches,
+    wall (``first_run_ms``) and peak device memory, also above what was
+    allocated before it (GiB)."""
+    import torch
+
+    from velox_tpu_torch.ops import grouped_sum as gs
+    from velox_tpu_torch.utils import syncs
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    syncs.reset()
+    gs.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"syncs": syncs.count, **gs.launches,
+                 "first_run_ms": (time.perf_counter() - t0) * 1e3,
+                 "peak_gb": peak / 2**30,
+                 "above_tables_gb": (peak - resident) / 2**30}
+
+
+def run_tpcds_queries(card: str, times: dict):
+    """Phase 7: generate the eight TPC-DS tables at SF10 (seed 7) and
+    register them on the card in splits of 2^23 rows; run the 15
+    ``SPEC_QUERIES`` with ``optimize_plans`` on, each checked against its
+    numpy oracle (``velox_tpu_torch/tpcds/oracle.py``: integers, strings
+    and row order exactly, DOUBLE to RTOL) in a run whose host syncs,
+    B1/B2 launches and peak device memory are counted, then timed
+    (median of 5 warm runs) and profiled once. Returns the generated
+    arrays and the counts and times per query."""
+    import torch
+
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.io.catalog import get_table, register_columns
+    from velox_tpu_torch.io.tpcds import TABLES, tpcds_columns
+    from velox_tpu_torch.tpcds import SPEC_QUERIES, tpcds_plan
+    from velox_tpu_torch.tpcds.oracle import answer
+    from velox_tpu_torch.utils.config import config
+
+    t0 = time.perf_counter()
+    tables, dicts = tpcds_columns(DS_SF, DS_SEED)
+    log(f"generated the eight TPC-DS tables SF{DS_SF} seed {DS_SEED}: "
+        f"{(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    for name in TABLES:
+        cols = tables[name]
+        register_columns(name, cols, {c: dicts[c] for c in cols
+                                      if c in dicts}, SPLIT_ROWS, None,
+                         "cuda")
+    torch.cuda.synchronize()
+    ss = get_table("store_sales")
+    log(f"registered the TPC-DS tables SF{DS_SF}: "
+        f"{(time.perf_counter() - t0):.3f} s; store_sales "
+        f"{ss.num_rows} rows in {len(ss.batches)} splits, "
+        + ", ".join(f"{n} {get_table(n).num_rows}" for n in TABLES[:-1])
+        + f"; device memory {torch.cuda.memory_allocated() / 2**30:.3f} "
+        f"GiB")
+    config.optimize_plans = True
+    out = {}
+    for q in SPEC_QUERIES:
+        t0 = time.perf_counter()
+        want = answer(q, tables, dicts)
+        log(f"DS q{q} oracle: {(time.perf_counter() - t0):.3f} s on the "
+            f"host")
+        got, run = _peak_run(lambda: run_plan(tpcds_plan(q)))
+        rows = len(next(iter(want.values())))
+        if rows == 0:
+            log(f"DS q{q}: the oracle is empty too")
+        check_result(got, want, f"DS q{q}")
+        wall = wall_ms(lambda: run_plan(tpcds_plan(q)))
+        busy = device_breakdown(lambda: run_plan(tpcds_plan(q)),
+                                f"ds_q{q}", wall, card, top=3)
+        times[f"ds_q{q}"] = wall
+        out[f"DS q{q}"] = {**run, "wall_ms": wall, "busy_ms": busy,
+                           "rows": rows}
+        log(f"DS q{q}: {rows} rows equal to the oracle; host syncs "
+            f"{run['syncs']}, launches B1 {run['grouped_sum_i32']} B2 "
+            f"{run['grouped_multi_sum_i32']}; warm wall {wall} ms, busy "
+            f"{busy} ms (share {busy / wall}), first run "
+            f"{run['first_run_ms']} ms; peak device memory "
+            f"{run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} above "
+            f"the tables) on {card}")
+    return tables, out
+
+
+def run_window_plans(store_sales, card: str, times: dict) -> dict:
+    """Phase 8: the window family at full width over the 28.8M-row
+    ``store_sales`` of phase 7 (``velox_tpu_torch/tpcds/window_plans.py``):
+    W1 the blocking window with every function and frame, W2 the
+    streaming window (the optimizer must choose ``StreamingWindowNode``),
+    W3 TopNRowNumber, RowNumber with a limit, MarkDistinct with a count,
+    GroupId with an aggregation and UnionAll with an aggregation. Each
+    result, as numpy arrays from its batches, must equal its numpy oracle
+    (integers exactly, DOUBLE to RTOL) before it is counted (host syncs,
+    launches, peak device memory), timed (median of 5 warm runs, the
+    batches drained on the card) and profiled once."""
+    import torch
+
+    from velox_tpu_torch.exec.task import Task
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.plan.nodes import StreamingWindowNode
+    from velox_tpu_torch.plan.optimizer import optimize_plan
+    from velox_tpu_torch.tpcds.window_plans import (
+        ORACLES, PLANS, compare, result_arrays,
+    )
+
+    node = optimize_plan(PLANS["W2"][0](PlanBuilder).build())
+    check(type(node) is StreamingWindowNode,
+          f"W2 runs as {type(node).__name__}, not StreamingWindowNode")
+    log("W2: the optimizer chose StreamingWindowNode")
+    out = {}
+    for name, (make, columns) in PLANS.items():
+        t0 = time.perf_counter()
+        want = ORACLES[name](store_sales)
+        log(f"{name} oracle: {(time.perf_counter() - t0):.3f} s on the host")
+        plan = make(PlanBuilder).build()
+        got = result_arrays(plan, columns)
+        err = compare(got, want, RTOL)
+        check(err is None, f"{name} differs from its oracle: {err}")
+        rows = len(next(iter(want.values()))[0])
+        check(rows > 0, f"{name}: no rows")
+
+        def drain():
+            for _ in Task(plan).run():
+                pass
+
+        # counted on a run that leaves the result on the card: the
+        # checked run's copies to the host would add syncs of their own
+        _, run = _peak_run(drain)
+        wall = wall_ms(drain)
+        busy = device_breakdown(drain, name, wall, card, top=5)
+        times[name] = wall
+        out[name] = {**run, "wall_ms": wall, "busy_ms": busy, "rows": rows}
+        log(f"{name}: {rows} rows, {len(columns)} columns equal to the "
+            f"oracle; host syncs {run['syncs']}, launches B1 "
+            f"{run['grouped_sum_i32']} B2 {run['grouped_multi_sum_i32']}; "
+            f"warm wall {wall} ms, busy {busy} ms (share {busy / wall}); "
+            f"first counted run {run['first_run_ms']} ms; peak device "
+            f"memory {run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} "
+            f"above the tables) on {card}")
+        del got
+        torch.cuda.empty_cache()
     return out
 
 
@@ -783,8 +935,11 @@ def main() -> int:
         f"{len(cuda_build.SOURCES)} source(s)")
 
     # 2. kernels against their plain versions
+    t0 = time.perf_counter()
     check_kernels(gs)
     torch.cuda.synchronize()
+    log(f"phase 2 (kernel checks): {(time.perf_counter() - t0):.3f} s")
+    t_phase = time.perf_counter()
 
     # 3. the main path at SF10
     config.narrow_lanes = True
@@ -855,8 +1010,14 @@ def main() -> int:
     del cols, rows_q1
     torch.cuda.empty_cache()
 
+    log(f"phase 3 (Q1, Q6): {(time.perf_counter() - t_phase):.3f} s")
+
     # 4. the joins: Q3 and Q18; 5. the other 18 queries
+    t0 = time.perf_counter()
     joins = run_join_queries(card, times)
+    log(f"phases 4 and 5 (TPC-H joins, 18 more queries): "
+        f"{(time.perf_counter() - t0):.3f} s")
+    t_phase = time.perf_counter()
 
     # 6. timings
     for k, v in times.items():
@@ -875,12 +1036,25 @@ def main() -> int:
             f"{k['library_ms']} ms, bound {k['bound_ms']} ms "
             f"({k['bound_by']}) on {card}")
     check(all(k["max_abs_err"] == 0 for k in wide), "kernel error")
+    del uniform
+    torch.cuda.empty_cache()
+    log(f"phase 6 (kernel timings): {(time.perf_counter() - t_phase):.3f} s")
+
+    # 7. TPC-DS at SF10; 8. the window family over its store_sales
+    t0 = time.perf_counter()
+    ds_tables, ds = run_tpcds_queries(card, times)
+    log(f"phase 7 (TPC-DS): {(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    windows = run_window_plans(ds_tables["store_sales"], card, times)
+    log(f"phase 8 (window plans): {(time.perf_counter() - t0):.3f} s")
 
     # report each kernel's launches in every query's checked run
     by_query = {"Q1 cents": q1_counts, "Q1 double": qd_counts,
                 "Q6 cents": q6_counts}
     by_query.update({label: run for label, run in joins["runs"].items()})
     by_query.update({f"{q} cents": run for q, run in joins["more"].items()})
+    by_query.update(ds)
+    by_query.update(windows)
     more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
     check(more_b2 > 0, "no query of phase 5 launched B2")
     kernels = [
@@ -900,7 +1074,8 @@ def main() -> int:
                       "q1_q6_syncs": main_syncs,
                       "join_query_counts": joins["runs"],
                       "more_queries": joins["more"],
-                      "rank_forms_ms": joins["rank_forms_ms"]}))
+                      "rank_forms_ms": joins["rank_forms_ms"],
+                      "tpcds_queries": ds, "window_plans": windows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

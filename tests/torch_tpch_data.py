@@ -134,3 +134,72 @@ def table_in_both(name, columns, dictionaries=None, overrides=None,
     finally:
         jax_catalog.drop_table(name)
         torch_catalog.drop_table(name)
+
+
+def values_in_both(columns, nulls=None, dictionaries=None,
+                   batch_rows: int = 128):
+    """The same rows as literal batches of each package, for
+    ``PlanBuilder.values``: ``(jax_batches, torch_batches)``, each a list
+    of splits of at most ``batch_rows`` rows. String columns are int32
+    codes into ``dictionaries`` (-1 is NULL); ``nulls`` maps other
+    columns to a bool mask of their NULL rows (their values read 0)."""
+    import torch
+
+    from velox_tpu_torch.vector.batch import Batch as TorchBatch
+    from velox_tpu_torch.vector.column import Column as TorchColumn
+
+    nulls = nulls or {}
+    dictionaries = dictionaries or {}
+    columns = {c: (np.where(nulls[c], 0, v).astype(v.dtype)
+                   if c in nulls else v) for c, v in columns.items()}
+    table = torch_catalog.register_columns(
+        "_values_in_both", columns, dictionaries, batch_rows, device="cpu")
+    torch_catalog.drop_table("_values_in_both")
+    torch_batches = []
+    for i, b in enumerate(table.batches):
+        cols = dict(b.columns)
+        for c, mask in nulls.items():
+            valid = np.zeros(b.capacity, dtype=bool)
+            valid[:b.num_rows] = ~mask[i * batch_rows:
+                                       i * batch_rows + b.num_rows]
+            old = cols[c]
+            cols[c] = TorchColumn(old.dtype, old.values,
+                                  torch.from_numpy(valid), old.dictionary,
+                                  old.stats)
+        torch_batches.append(TorchBatch(cols, b.sel, b.num_rows))
+    arrays = {}
+    for c, v in columns.items():
+        if c in dictionaries:
+            values = np.asarray(list(dictionaries[c]) + [None], dtype=object)
+            arrays[c] = pa.array(values[v].tolist(), type=pa.string())
+        else:
+            arrays[c] = pa.array(v, mask=nulls.get(c))
+    # the JAX catalog's splits share one sorted dictionary per column
+    jax_batches = jax_catalog.register_arrow(
+        "_values_in_both", pa.table(arrays), batch_rows).batches
+    jax_catalog.drop_table("_values_in_both")
+    return jax_batches, torch_batches
+
+
+#: TPC-DS scale of the differential tests: every spec query returns rows
+TPCDS_SF = 0.01
+TPCDS_SEED = 7
+
+
+@contextlib.contextmanager
+def tpcds_in_both(sf: float = TPCDS_SF, batch_rows: int = BATCH_ROWS,
+                  prefix: str = ""):
+    """Generate the TPC-DS tables with each package's generator and
+    register them in its catalog under ``prefix``; yield the port's
+    arrays (``tpcds_columns``) and drop every table afterwards."""
+    from velox_tpu.io.tpcds import register_tpcds as jax_register
+    from velox_tpu_torch.io.tpcds import TABLES, register_tpcds
+
+    jax_register(sf, batch_rows, TPCDS_SEED, prefix)
+    try:
+        yield register_tpcds(sf, batch_rows, TPCDS_SEED, prefix,
+                             device="cpu")
+    finally:
+        for name in TABLES:
+            jax_catalog.drop_table(prefix + name)
+            torch_catalog.drop_table(prefix + name)

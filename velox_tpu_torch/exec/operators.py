@@ -9,7 +9,8 @@ generic sort-based mode, SINGLE step, single-step ``count(distinct)``),
 ``JoinBridge``, ``HashBuildOp``, ``HashProbeOp`` for inner, left outer,
 left-semi, null-aware anti and anti joins with residual filters,
 ``MergeJoinBuildOp``, ``MergeJoinProbeOp``), the cross join
-(``CrossBuildOp``, ``CrossProbeOp``) and ``EnforceSingleRowOp``. Each runs
+(``CrossBuildOp``, ``CrossProbeOp``), ``EnforceSingleRowOp``, the
+``ValuesOp`` leaf and ``AssignUniqueIdOp``. Each runs
 eagerly on the device its batches live on. Blocking operators buffer in
 plain lists; spill stores wait for a later slice. Where a size depends on
 the data (a join's match total, a batch's group count) the operator
@@ -78,6 +79,21 @@ def _cols_of(batch: Batch, names) -> Dict[str, Tuple]:
 
 
 # --------------------------------------------------------------- leaf ops
+
+class ValuesOp(Operator):
+    """velox/core/PlanNode.h ValuesNode executor: the node's batches, in
+    order, on the device they were made on."""
+
+    def __init__(self, node):
+        super().__init__(node)
+        self._queue = collections.deque(node.batches)
+
+    def get_output(self) -> Optional[Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return not self._queue
+
 
 class TableScanOp(Operator):
     """velox/exec/TableScan.cpp: drains catalog splits and applies the
@@ -1639,3 +1655,32 @@ class EnforceSingleRowOp(Operator):
 
     def is_finished(self) -> bool:
         return self.no_more_input_seen and self._emitted
+
+
+class AssignUniqueIdOp(Operator):
+    """velox/core/PlanNode.h:5153 — a unique int64 per row: the row's
+    rank among the selected rows so far, OR the task id shifted left by
+    40 bits (0 on unselected rows before the OR). The running count stays
+    on the device, so no batch waits on the host."""
+
+    def __init__(self, node):
+        super().__init__(node)
+        self._next: Optional[torch.Tensor] = None
+        self._queue: collections.deque = collections.deque()
+
+    def add_input(self, batch: Batch) -> None:
+        sel = batch.sel
+        if self._next is None:
+            self._next = torch.zeros((), dtype=torch.int64, device=sel.device)
+        rank = torch.cumsum(sel, 0) - 1 + self._next
+        ids = (torch.where(sel, rank, torch.zeros_like(rank))
+               | (int(self.node.task_unique_id) << 40))
+        self._next = self._next + sel.sum()
+        self._queue.append(batch.with_column(self.node.id_name,
+                                             Column(BIGINT, ids)))
+
+    def get_output(self) -> Optional[Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen and not self._queue

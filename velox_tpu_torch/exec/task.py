@@ -6,7 +6,9 @@ slices. ``LocalPlanner`` splits the plan into pipelines at join builds
 cross join's build side becomes a pipeline ending in a build sink that
 publishes a ``JoinBridge``; build pipelines run to completion first, in creation
 order (a topological order of the bridges), then the output pipeline
-streams. Each chain is offered to ``maybe_fuse`` (``exec/fused.py``).
+streams. Each source of a union or merge after the first runs the same
+way, into a sink pipeline that buffers its batches for the union. Each
+chain is offered to ``maybe_fuse`` (``exec/fused.py``).
 ``run_plan`` returns the result as a dict of Python lists (there is no
 pyarrow): decimals as ``decimal.Decimal``, strings as ``str``.
 """
@@ -18,15 +20,23 @@ from typing import Dict, Iterator, List
 from velox_tpu_torch.vector.batch import Batch
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.operators import (
-    CrossBuildOp, CrossProbeOp, EnforceSingleRowOp, FilterOp,
-    HashAggregationOp, HashBuildOp, HashProbeOp, JoinBridge, LimitOp,
-    MergeJoinBuildOp, MergeJoinProbeOp, OrderByOp, ProjectOp,
-    StreamingAggregationOp, TableScanOp, TopNOp,
+    AssignUniqueIdOp, CrossBuildOp, CrossProbeOp, EnforceSingleRowOp,
+    FilterOp, HashAggregationOp, HashBuildOp, HashProbeOp, JoinBridge,
+    LimitOp, MergeJoinBuildOp, MergeJoinProbeOp, OrderByOp, ProjectOp,
+    StreamingAggregationOp, TableScanOp, TopNOp, ValuesOp,
+)
+from velox_tpu_torch.exec.window_ops import (
+    ExpandOp, GroupIdOp, LocalMergeOp, MarkDistinctOp, RowNumberOp,
+    StreamingWindowOp, TopNRowNumberOp, UnionAllOp, UnionBridge,
+    UnionSinkOp, WindowOp,
 )
 from velox_tpu_torch.plan.nodes import (
-    AggregationNode, CrossJoinNode, EnforceSingleRowNode, FilterNode,
-    HashJoinNode, JoinType, LimitNode, MergeJoinNode, OrderByNode, PlanNode,
-    ProjectNode, StreamingAggregationNode, TableScanNode, TopNNode,
+    AggregationNode, AssignUniqueIdNode, CrossJoinNode, EnforceSingleRowNode,
+    ExpandNode, FilterNode, GroupIdNode, HashJoinNode, JoinType, LimitNode,
+    LocalMergeNode, MarkDistinctNode, MergeJoinNode, OrderByNode, PlanNode,
+    ProjectNode, RowNumberNode, StreamingAggregationNode,
+    StreamingWindowNode, TableScanNode, TopNNode, TopNRowNumberNode,
+    UnionAllNode, ValuesNode, WindowNode,
 )
 
 _SIMPLE_OPERATORS = {
@@ -38,6 +48,14 @@ _SIMPLE_OPERATORS = {
     TopNNode: TopNOp,
     LimitNode: LimitOp,
     EnforceSingleRowNode: EnforceSingleRowOp,
+    AssignUniqueIdNode: AssignUniqueIdOp,
+    WindowNode: WindowOp,
+    StreamingWindowNode: StreamingWindowOp,
+    RowNumberNode: RowNumberOp,
+    TopNRowNumberNode: TopNRowNumberOp,
+    MarkDistinctNode: MarkDistinctOp,
+    ExpandNode: ExpandOp,
+    GroupIdNode: GroupIdOp,
 }
 
 #: join types whose probe can push a build-side filter into its scan
@@ -68,6 +86,8 @@ class LocalPlanner:
         return self.pipelines[-1].operators
 
     def _lower(self, node: PlanNode) -> List[Operator]:
+        if isinstance(node, ValuesNode):
+            return [ValuesOp(node)]
         if isinstance(node, TableScanNode):
             return [TableScanOp(node)]
         if isinstance(node, HashJoinNode):   # MergeJoinNode included
@@ -87,6 +107,17 @@ class LocalPlanner:
                     and node.join_type in _PUSHDOWN_JOINS):
                 probe.pushdown_scan = chain[0]
             chain.append(probe)
+            return chain
+        if isinstance(node, (UnionAllNode, LocalMergeNode)):
+            # sources[1:] each run first into a sink pipeline
+            bridge = UnionBridge()
+            for src in node.inputs[1:]:
+                sink_chain = self._lower(src)
+                sink_chain.append(UnionSinkOp(node, bridge))
+                self.pipelines.append(Pipeline(sink_chain, is_output=False))
+            chain = self._lower(node.inputs[0])
+            chain.append((UnionAllOp if isinstance(node, UnionAllNode)
+                          else LocalMergeOp)(node, bridge))
             return chain
         if isinstance(node, CrossJoinNode):
             bridge = JoinBridge(node)

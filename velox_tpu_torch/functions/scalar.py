@@ -72,6 +72,7 @@ def _div_impl(pair0, pair1):
 
 register_function(ScalarFunction(
     "divide", _arith_type, _div_impl, default_nulls=False))
+register_function(ScalarFunction("abs", lambda a: a[0], torch.abs))
 
 # ------------------------------------------------------------- comparisons
 

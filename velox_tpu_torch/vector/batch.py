@@ -91,6 +91,11 @@ class Batch:
                  num_rows: Optional[int] = None) -> "Batch":
         return Batch(self.columns, sel, num_rows)
 
+    def with_column(self, name: str, col: Column) -> "Batch":
+        cols = dict(self.columns)
+        cols[name] = col
+        return Batch(cols, self.sel, self.num_rows)
+
     def project(self, names: Iterable[str]) -> "Batch":
         return Batch({n: self.columns[n] for n in names}, self.sel,
                      self.num_rows)
