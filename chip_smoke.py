@@ -36,7 +36,7 @@ Phases (any failure ends the run with a nonzero exit code):
    strings exactly, row order included, DOUBLE to rtol=1e-9) in a run
    whose host syncs and B1/B2 launches are counted, then timed (median
    of 5 warm runs) and profiled once (device busy share); B2 must launch
-   in at least one of them;
+   in at least one of them; then phase 9 runs over the same tables;
 6. time each kernel at Q1's shape on Q1's gids of split 0 and at G = 128
    on uniform gids: ``ms`` is a call from Python between CUDA events,
    ``device_ms`` the device time of a call from CUDA graph replay (no
@@ -59,6 +59,18 @@ Phases (any failure ends the run with a nonzero exit code):
    as one JSON line (with each kernel's launches in every checked run of
    every phase), the card line, and last the device line
    ``{"ok": true, "device": {...}}``. Each phase logs its seconds.
+9. (run right after phase 5, while the TPC-H tables are on the card)
+   the scalar functions (``velox_tpu_torch/tpch/scalar_plans.py``): the
+   date, timestamp, math, bitwise and hash, NULL-function and ``rand``
+   families projected over lineitem's 60M rows and the probability
+   family over part's 2M, each result array checked element by element
+   against its oracle computed on the host (numpy; scipy for
+   probability), timed and profiled as the queries are; a seeded
+   2^24-row ``datetime64[us]`` table registered and read back as a
+   TIMESTAMP through the same functions; and one aggregation of
+   integer results of new functions grouped by Q1's kArray keys through
+   ``run_plan``, exact against its oracle, which must launch B2 once per
+   split.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -157,15 +169,15 @@ def device_breakdown(fn, label: str, wall: float, card: str,
                      top: int = 8) -> float:
     """One profiled run of ``fn``: device time by kernel (the ``top``
     largest) and the device busy share of the unprofiled median wall;
-    returns the busy ms. Only the CUDA kernel rows count; the aten operator rows that
-    launched them would count the same time twice."""
+    returns the busy ms. Only the device's activity is recorded: the
+    kernel rows are all the sum reads, and the host operator events of
+    a run of 10^5 launches take minutes to collect."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -660,6 +672,9 @@ def run_join_queries(card: str, times: dict) -> dict:
                          times[f"q{q}_cents"], card)
 
     more = run_more_queries(tables, dicts, card, times)
+    t0 = time.perf_counter()
+    scalar = run_scalar_families(tables, dicts, card, times)
+    log(f"phase 9 (scalar functions): {(time.perf_counter() - t0):.3f} s")
 
     for t in tables:
         drop_table(t)
@@ -678,7 +693,8 @@ def run_join_queries(card: str, times: dict) -> dict:
     for t in ("lineitem", "orders", "customer"):
         drop_table(t)
     torch.cuda.empty_cache()
-    return {"runs": counts, "rank_forms_ms": rank_ms, "more": more}
+    return {"runs": counts, "rank_forms_ms": rank_ms, "more": more,
+            "scalar": scalar}
 
 
 #: the columns Q3 and Q18 read (the DOUBLE run registers only these)
@@ -742,6 +758,195 @@ def run_more_queries(tables, dicts, card: str, times: dict) -> dict:
             f"{run['first_run_ms']} ms; peak device memory "
             f"{run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} above "
             f"the tables) on {card}")
+    return out
+
+
+# ------------------------------------------------- scalar functions
+
+#: the probability family against scipy: the tolerance stated in
+#: tests/test_torch_scalar_prob.py (torch's gammaincc is within 4e-10)
+PROB_TOL = {"rtol": 1e-9, "atol": 1e-9}
+SCALAR_RTOL = 1e-12
+
+
+def probability_oracle(part) -> dict:
+    """``scalar_plans.PROBABILITY`` over ``part`` with scipy, from the
+    generated arrays, in the plan's own order of IEEE operations for
+    its derived arguments."""
+    import scipy.stats as st
+    from scipy.special import gammaincc
+
+    key, size = part["p_partkey"], part["p_size"].astype(np.float64)
+    pr = ((key % 9973).astype(np.float64) + 0.5) / 9973.0
+    x = (key % 2000).astype(np.float64) / 100.0
+    xs = x - 10.0
+    s = size
+    z2 = 1.96 * 1.96
+    n = size + 20
+    p = size / n
+    center = p + z2 / (2.0 * n)
+    spread = 1.96 * np.sqrt(p * (1.0 - p) / n + z2 / (4.0 * n * n))
+    out = {
+        "normal": st.norm.cdf(s, 25.0, 10.0),
+        "cauchy": st.cauchy.cdf(xs, 0, 2),
+        "chi2": st.chi2.cdf(x, size), "gamma": st.gamma.cdf(x, size,
+                                                           scale=0.5),
+        "laplace": st.laplace.cdf(xs, 0, 3),
+        # Q(floor(k) + 1, lambda), which is the Poisson CDF at k >= 0
+        "poisson": gammaincc((key % 60).astype(np.float64) + 1, size),
+        "weibull": st.weibull_min.cdf(x, 1.5, scale=8.0),
+        "beta": st.beta.cdf(pr, size, 3.5), "f": st.f.cdf(x, size, 7.0),
+        "binomial": st.binom.cdf(key % 30, size + 10, 0.3),
+        "t": st.t.cdf(xs, size),
+        "wilson_lo": (center - spread) / (1.0 + z2 / n),
+        "wilson_hi": (center + spread) / (1.0 + z2 / n),
+        "inv_normal": st.norm.ppf(pr), "inv_cauchy": st.cauchy.ppf(pr, 0, 2),
+        "inv_laplace": st.laplace.ppf(pr, 0, 3),
+        "inv_weibull": st.weibull_min.ppf(pr, 1.5, scale=8.0),
+        "inv_beta": st.beta.ppf(pr, size, 3.5),
+        "inv_chi2": st.chi2.ppf(pr, size),
+        "inv_gamma": st.gamma.ppf(pr, size, scale=0.5),
+        "inv_f": st.f.ppf(pr, size, 7.0), "inv_t": st.t.ppf(pr, size),
+        "inv_binomial": st.binom.ppf(pr, size + 10, 0.3).astype(np.int64),
+        "inv_poisson": st.poisson.ppf(pr, size).astype(np.int64),
+    }
+    return {k: (v, None) for k, v in out.items()}
+
+
+def chunked_oracle(oracle, columns: dict, parts: int = 8) -> dict:
+    """A row-wise oracle over ``parts`` slices of ``columns`` in threads
+    (numpy releases the interpreter lock), concatenated in row order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(next(iter(columns.values())))
+    bounds = np.linspace(0, n, parts + 1).astype(np.int64)
+    pieces = [{c: v[lo:hi] for c, v in columns.items()}
+              for lo, hi in zip(bounds[:-1], bounds[1:])]
+    with ThreadPoolExecutor(parts) as pool:
+        outs = list(pool.map(oracle, pieces))
+    return {k: (np.concatenate([o[k][0] for o in outs]),
+                None if outs[0][k][1] is None
+                else np.concatenate([o[k][1] for o in outs]))
+            for k in outs[0]}
+
+
+def run_scalar_families(tables, dicts, card: str, times: dict,
+                        device: str = "cuda") -> dict:
+    """Phase 9, over the TPC-H tables that phase 4 registered (cents,
+    narrow lanes): each function family of
+    ``velox_tpu_torch/tpch/scalar_plans.py`` projected over real columns,
+    its result arrays checked element by element against the oracle
+    computed on the host from the generated arrays (integers, dates,
+    timestamps, booleans and NULL masks exactly; DOUBLE to
+    ``SCALAR_RTOL``, the probability family to ``PROB_TOL`` against
+    scipy), in a run whose host syncs and launches are counted, then
+    timed (median of 5 warm runs, the batches drained on the card) and
+    profiled once; then a seeded table of 2^24 ``datetime64[us]`` values
+    registered through ``register_columns`` (a TIMESTAMP column), and the
+    aggregation of ``scalar_plans.plan_aggregate`` through ``run_plan``,
+    whose sums must equal the oracle's and which must launch B2 once per
+    split of lineitem."""
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.exec.task import Task
+    from velox_tpu_torch.io.catalog import (
+        drop_table, get_table, register_columns,
+    )
+    from velox_tpu_torch.ops import grouped_sum as gs
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.tpcds.window_plans import compare, result_arrays
+    from velox_tpu_torch.tpch import scalar_plans as sp
+
+    def family(name, make, columns, oracle, tol):
+        t0 = time.perf_counter()
+        want = oracle()
+        oracle_s = time.perf_counter() - t0
+        plan = make(PlanBuilder).build()
+        got, run = _peak_run(lambda: result_arrays(plan, columns))
+        t0 = time.perf_counter()
+        err = compare({c: got[c] for c in want}, want, **tol)
+        compare_s = time.perf_counter() - t0
+        check(err is None, f"scalar {name} differs from its oracle: {err}")
+        if name == "nulls":
+            err = sp.check_random(got)
+            check(err is None, f"scalar nulls: {err}")
+        rows = len(next(iter(got.values()))[0])
+        nulls = sum(int((~m).sum()) for _, m in got.values() if m is not None)
+        check(rows > 0, f"scalar {name}: no rows")
+        del got, want
+
+        def drain():
+            for _ in Task(plan).run():
+                pass
+
+        t0 = time.perf_counter()
+        wall = wall_ms(drain)
+        timed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        busy = device_breakdown(drain, f"scalar_{name}", wall, card, top=5)
+        profile_s = time.perf_counter() - t0
+        times[f"scalar_{name}"] = wall
+        log(f"scalar {name}: {rows} rows, {len(columns)} columns equal to "
+            f"the oracle ({oracle_s:.3f} s on the host, compared in "
+            f"{compare_s:.3f} s; timed runs {timed_s:.3f} s, profiled run "
+            f"{profile_s:.3f} s), {nulls} NULLs; "
+            f"host syncs {run['syncs']}; warm wall {wall} ms, busy {busy} "
+            f"ms (share {busy / wall}); first checked run "
+            f"{run['first_run_ms']} ms; peak device memory "
+            f"{run['peak_gb']:.3f} GiB on {card}")
+        return {"syncs": run["syncs"],
+                **{k: run[k] for k in gs.launches},
+                "wall_ms": wall, "busy_ms": busy,
+                "rows": rows, "columns": len(columns), "nulls": nulls,
+                "oracle_s": oracle_s, "compare_s": compare_s,
+                "timed_s": timed_s, "profile_s": profile_s,
+                "first_run_ms": run["first_run_ms"],
+                "peak_gb": run["peak_gb"], "checks": "passed"}
+
+    li = tables["lineitem"]
+    out = {}
+    for name, (make, columns) in sp.FAMILIES.items():
+        if name == "probability":
+            # scipy holds the interpreter lock: one thread
+            oracle = (lambda: probability_oracle(  # noqa: E731
+                tables["part"]))
+            tol = PROB_TOL
+        else:
+            # the dates oracle is gathers, which hold the interpreter
+            # lock: it runs in one thread
+            oracle = (lambda o: lambda: o(li) if name == "dates"
+                      else chunked_oracle(o, li))(sp.ORACLES[name])
+            tol = {"rtol": SCALAR_RTOL}
+        out[name] = family(name, make, columns, oracle, tol)
+
+    ts_cols = sp.timestamp_table_columns(1 << 24, SEED)
+    register_columns(sp.TIMESTAMP_TABLE, ts_cols, None, SPLIT_ROWS, None,
+                     device)
+    check(str(get_table(sp.TIMESTAMP_TABLE).schema.find_child("t"))
+          == "TIMESTAMP", "a datetime64[us] column is not a TIMESTAMP")
+    out["timestamp_table"] = family(
+        "timestamp_table", sp.plan_timestamp_table,
+        list(sp.TIMESTAMP_TABLE_EXPRS),
+        lambda: chunked_oracle(sp.oracle_timestamp_table, ts_cols),
+        {"rtol": SCALAR_RTOL})
+    drop_table(sp.TIMESTAMP_TABLE)
+
+    splits = len(get_table("lineitem").batches)
+    want = sp.oracle_aggregate(li, dicts)
+    got, run = _peak_run(lambda: run_plan(sp.plan_aggregate(PlanBuilder)))
+    check_result(got, want, "scalar aggregate")
+    check(run["grouped_multi_sum_i32"] == splits,
+          f"scalar aggregate launched B2 {run['grouped_multi_sum_i32']} "
+          f"times, want once per split ({splits})")
+    wall = wall_ms(lambda: run_plan(sp.plan_aggregate(PlanBuilder)))
+    busy = device_breakdown(lambda: run_plan(sp.plan_aggregate(PlanBuilder)),
+                            "scalar_aggregate", wall, card, top=5)
+    times["scalar_aggregate"] = wall
+    out["aggregate"] = {**run, "wall_ms": wall, "busy_ms": busy,
+                        "rows": len(want["n"]), "checks": "passed"}
+    log(f"scalar aggregate: {len(want['n'])} groups equal to the oracle; "
+        f"host syncs {run['syncs']}, launches B1 {run['grouped_sum_i32']} "
+        f"B2 {run['grouped_multi_sum_i32']} ({splits} splits); warm wall "
+        f"{wall} ms, busy {busy} ms (share {busy / wall}) on {card}")
     return out
 
 
@@ -1053,6 +1258,8 @@ def main() -> int:
                 "Q6 cents": q6_counts}
     by_query.update({label: run for label, run in joins["runs"].items()})
     by_query.update({f"{q} cents": run for q, run in joins["more"].items()})
+    by_query.update({f"scalar {n}": run
+                     for n, run in joins["scalar"].items()})
     by_query.update(ds)
     by_query.update(windows)
     more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
@@ -1074,6 +1281,7 @@ def main() -> int:
                       "q1_q6_syncs": main_syncs,
                       "join_query_counts": joins["runs"],
                       "more_queries": joins["more"],
+                      "scalar_functions": joins["scalar"],
                       "rank_forms_ms": joins["rank_forms_ms"],
                       "tpcds_queries": ds, "window_plans": windows}))
     print(card)

@@ -113,7 +113,8 @@ def table_in_both(name, columns, dictionaries=None, overrides=None,
                   batch_rows: int = 128):
     """Register one hand-made table in both catalogs: string columns as
     int32 codes into ``dictionaries`` (-1 is NULL), integer columns named
-    in ``overrides`` as unscaled decimals."""
+    in ``overrides`` as unscaled decimals, ``datetime64[D]`` columns as
+    dates and finer ``datetime64`` units as timestamps."""
     dictionaries = dictionaries or {}
     torch_catalog.register_columns(name, columns, dictionaries, batch_rows,
                                    overrides, device="cpu")
@@ -122,10 +123,11 @@ def table_in_both(name, columns, dictionaries=None, overrides=None,
         if c in dictionaries:
             values = np.asarray(list(dictionaries[c]) + [None], dtype=object)
             arrays[c] = pa.array(values[v].tolist(), type=pa.string())
-        elif v.dtype.kind == "M":
-            days = v.astype("datetime64[D]").astype(np.int64)
+        elif v.dtype == np.dtype("datetime64[D]"):
+            days = v.astype(np.int64)
             arrays[c] = pa.array(days.astype(np.int32), type=pa.date32())
         else:
+            # finer datetime64 units become Arrow timestamps
             arrays[c] = pa.array(v)
     jax_catalog.register_arrow(name, pa.table(arrays), batch_rows,
                                decimal_overrides=overrides)
@@ -137,12 +139,13 @@ def table_in_both(name, columns, dictionaries=None, overrides=None,
 
 
 def values_in_both(columns, nulls=None, dictionaries=None,
-                   batch_rows: int = 128):
+                   batch_rows: int = 128, overrides=None):
     """The same rows as literal batches of each package, for
     ``PlanBuilder.values``: ``(jax_batches, torch_batches)``, each a list
     of splits of at most ``batch_rows`` rows. String columns are int32
     codes into ``dictionaries`` (-1 is NULL); ``nulls`` maps other
-    columns to a bool mask of their NULL rows (their values read 0)."""
+    columns to a bool mask of their NULL rows (their values read 0);
+    integer columns named in ``overrides`` are unscaled decimals."""
     import torch
 
     from velox_tpu_torch.vector.batch import Batch as TorchBatch
@@ -150,10 +153,11 @@ def values_in_both(columns, nulls=None, dictionaries=None,
 
     nulls = nulls or {}
     dictionaries = dictionaries or {}
-    columns = {c: (np.where(nulls[c], 0, v).astype(v.dtype)
+    columns = {c: (np.where(nulls[c], np.zeros_like(v), v)
                    if c in nulls else v) for c, v in columns.items()}
     table = torch_catalog.register_columns(
-        "_values_in_both", columns, dictionaries, batch_rows, device="cpu")
+        "_values_in_both", columns, dictionaries, batch_rows, overrides,
+        device="cpu")
     torch_catalog.drop_table("_values_in_both")
     torch_batches = []
     for i, b in enumerate(table.batches):
@@ -176,7 +180,8 @@ def values_in_both(columns, nulls=None, dictionaries=None,
             arrays[c] = pa.array(v, mask=nulls.get(c))
     # the JAX catalog's splits share one sorted dictionary per column
     jax_batches = jax_catalog.register_arrow(
-        "_values_in_both", pa.table(arrays), batch_rows).batches
+        "_values_in_both", pa.table(arrays), batch_rows,
+        decimal_overrides=overrides).batches
     jax_catalog.drop_table("_values_in_both")
     return jax_batches, torch_batches
 

@@ -53,3 +53,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def true_divide(v: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``v / divisor``, correctly rounded on every device. CUDA divides a
+    tensor by a host scalar as a multiplication by the scalar's
+    reciprocal, which is an ulp off for most divisors (0.01 among them);
+    a divisor that lives on the device is divided by."""
+    return v / torch.full((), divisor, dtype=v.dtype, device=v.device)

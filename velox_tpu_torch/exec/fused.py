@@ -141,7 +141,7 @@ class FusedScanAggOp(Operator):
         agg = self.agg
         key_dicts = {k: dicts.get(k) for k in agg.keys}
         mode = agg.decide_mode_dicts(key_dicts)
-        agg.note_key_dicts(key_dicts)
+        agg.note_key_dicts(dicts)
         agg_fn = (agg.make_array_fn() if mode == "array"
                   else agg.make_generic_fn())
         hit = (stages, agg_fn, mode)

@@ -236,7 +236,13 @@ class HashAggregationOp(Operator):
         self._entries: List[dict] = []  # keyless partials (generic mode)
         self._array_state: Optional[dict] = None
         self._mode: Optional[str] = None
+        #: the dictionary of each string key and string aggregate
+        #: argument: output keys decode through it, and min/max of a
+        #: string are codes into it (sorted, so codes are ranks)
         self._key_dicts: Dict[str, Dictionary] = {}
+        self._dict_cols = list(dict.fromkeys(
+            self.keys + [s.arg for s, t in zip(self.specs, self.arg_types)
+                         if t is not None and t.is_string]))
         self._emitted = False
         self._device: Optional[torch.device] = None
 
@@ -297,15 +303,26 @@ class HashAggregationOp(Operator):
             self.push_generic_entry(*self.make_generic_fn()(cols, batch.sel))
 
     def note_key_dicts(self, batch_or_dicts) -> None:
-        """Remember the first dictionary seen for each string key: the
-        output key columns decode through it."""
+        """Remember the first dictionary seen for each string key and
+        string aggregate argument."""
         if isinstance(batch_or_dicts, Batch):
             batch_or_dicts = {k: batch_or_dicts.column(k).dictionary
-                              for k in self.keys}
-        for k in self.keys:
+                              for k in self._dict_cols}
+        for k in self._dict_cols:
             d = batch_or_dicts.get(k)
             if d is not None:
                 self._key_dicts.setdefault(k, d)
+
+    def _agg_column(self, name: str, vals, valid) -> Column:
+        """An aggregate's output column; a string result (min/max of a
+        string) keeps its argument's dictionary."""
+        t = self.output_type.find_child(name)
+        if not t.is_string:
+            return Column(t, vals, valid)
+        arg = self.specs[self.agg_names.index(name)].arg
+        # a group with no value holds the identity: code -1 decodes it
+        vals = torch.where(valid, vals, torch.full_like(vals, -1))
+        return Column(t, vals, valid, _key_dict_for(self._key_dicts, t, arg))
 
     def ensure_array_state(self, device: torch.device) -> dict:
         if self._array_state is None:
@@ -498,8 +515,7 @@ class HashAggregationOp(Operator):
             cols[k] = Column(kt, v, va, _key_dict_for(self._key_dicts, kt, k))
         for name, fn, accs in zip(self.agg_names, self.fns, st["accs"]):
             vals, valid = fn.extract(tuple(padded(a) for a in accs), seen)
-            cols[name] = Column(self.output_type.find_child(name), vals,
-                                valid)
+            cols[name] = self._agg_column(name, vals, valid)
         return Batch(cols, seen)
 
     def _merge_entries(self, entries: List[dict]) -> Batch:
@@ -583,8 +599,7 @@ class HashAggregationOp(Operator):
                 accs = fn.combine(tuple(accs), gids, lanes,
                                   sel & (idx < n_reg))
             vals, valid = fn.extract(accs, group_sel)
-            cols[name] = Column(self.output_type.find_child(name), vals,
-                                valid)
+            cols[name] = self._agg_column(name, vals, valid)
         return Batch(cols, group_sel)
 
     def _empty_result(self) -> Batch:
@@ -598,8 +613,7 @@ class HashAggregationOp(Operator):
         for name, fn, accs in zip(self.agg_names, self.fns,
                                   self._init_accs(cap, device)):
             vals, valid = fn.extract(accs, sel)
-            cols[name] = Column(self.output_type.find_child(name), vals,
-                                valid)
+            cols[name] = self._agg_column(name, vals, valid)
         return Batch(cols, sel)
 
     def is_finished(self) -> bool:
@@ -762,8 +776,7 @@ class StreamingAggregationOp(HashAggregationOp):
                       else t[:1])
                 accs.append(torch.cat([c0, t[:ng - 1], t.new_zeros(pad)]))
             vals, valid = fn.extract(tuple(accs), gsel)
-            out[name] = Column(self.output_type.find_child(name), vals,
-                               valid)
+            out[name] = self._agg_column(name, vals, valid)
         emitted = self._emit(out, gsel)
         self._queue.append(emitted)
 
@@ -799,8 +812,7 @@ class StreamingAggregationOp(HashAggregationOp):
             full = tuple(torch.cat([lv, lv.new_zeros(cap - 1)])
                          for lv in lanes)
             vals, valid = fn.extract(full, sel0)
-            cols[name] = Column(self.output_type.find_child(name), vals,
-                                valid)
+            cols[name] = self._agg_column(name, vals, valid)
         return self._emit(cols, sel0)
 
     def is_finished(self) -> bool:

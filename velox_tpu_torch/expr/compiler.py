@@ -1,11 +1,14 @@
 """Expression compilation: typed IR -> eager torch evaluation.
 
-The subset of the JAX package's ``expr/compiler.py`` that the 22 TPC-H
-queries need, with the same three phases:
+The JAX package's ``expr/compiler.py`` for flat types, with the same
+three phases:
 
 1. ``resolve_types``: bind FieldRefs against an input schema, resolve call
    result types, insert implicit numeric-widening casts and decimal
-   rescales (SignatureBinder analog, velox/expression/SignatureBinder.h).
+   rescales (SignatureBinder analog, velox/expression/SignatureBinder.h);
+   specialize ``date_trunc``/``date_add``/``date_diff`` on their unit,
+   route TIMESTAMP arguments of day parts through ``__ts_days``, and
+   type interval arithmetic.
 2. ``bind_strings``: string compares and ``in`` lists against literals
    become integer compares on the dictionary codes (the catalog's
    dictionaries are sorted, so codes are ranks); ``like`` becomes a
@@ -14,8 +17,9 @@ queries need, with the same three phases:
    dictionary), each computed on the host once per distinct value;
    string columns otherwise pass through.
 3. ``widen_decimal_arith`` then evaluation over ``(values, valid)`` pairs
-   with common-subexpression memoization. There is no tracing: every
-   node runs as torch ops on the device of the input tensors.
+   with common-subexpression memoization (``rand`` is drawn anew for
+   every call). There is no tracing: every node runs as torch ops on the
+   device of the input tensors.
 
 Integer promotion follows the reference, not torch: a 0-d int64 literal
 against an int32 column yields int64 (torch alone would keep int32), so
@@ -24,6 +28,7 @@ every default-null call promotes its operands to one dtype first.
 
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -31,8 +36,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from velox_tpu_torch import torch_dtype
-from velox_tpu_torch.types import BOOLEAN, DOUBLE, DataType, INTEGER, VARCHAR
+from velox_tpu_torch import torch_dtype, true_divide
+from velox_tpu_torch.types import (
+    BIGINT, BOOLEAN, DATE, DOUBLE, DataType, INTEGER, TIMESTAMP, VARCHAR,
+)
 from velox_tpu_torch.types.types import (
     DecimalType, RowType, TypeKind, common_numeric_type,
 )
@@ -98,19 +105,34 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
         if name in ("substr", "substring"):
             # bound to a dictionary transform in phase 2
             return Call(VARCHAR, "substr", args)
-        if any(a.dtype is not None and a.dtype.kind in (
-                TypeKind.INTERVAL_DAY_TIME, TypeKind.INTERVAL_YEAR_MONTH)
-               for a in args):
-            # whole-day DATE +/- INTERVAL folds to an integer day shift
-            # in the parser; other interval arithmetic is not ported yet
-            raise NotImplementedError(f"interval arithmetic in {name}")
+        if (name == "data_size_for_stats" and args[0].dtype is not None
+                and args[0].dtype.is_string):
+            raise NotImplementedError(
+                "data_size_for_stats over strings needs octet_length, "
+                "which waits for the string functions")
+        if name in _DAY_PART_FNS or name in _TIME_PART_FNS:
+            a0 = args[0]
+            if a0.dtype is not None and a0.dtype.kind == TypeKind.TIMESTAMP:
+                if name in _DAY_PART_FNS:
+                    # day-granularity parts read DATE lanes: TIMESTAMP
+                    # microseconds floor-divide to days first
+                    a0 = Call(DATE, "__ts_days", (a0,))
+                rt = DATE if name == "last_day_of_month" else BIGINT
+                return Call(rt, name, (a0,) + args[1:])
+        if name in ("date_trunc", "date_add", "date_diff"):
+            return _resolve_unit_call(name, args)
 
         if name in _ARITH or name in _COMPARE or name == "between":
             args = _unify_numeric(name, args)
 
-        if name in ("if", "switch"):
+        if name in ("if", "switch", "coalesce"):
             dtype = _branch_type(name, args)
             return Call(dtype, name, _cast_branches(name, args, dtype))
+
+        if name in ("plus", "minus", "multiply"):
+            iv = _resolve_interval_arith(name, args)
+            if iv is not None:
+                return iv
 
         fn = lookup_function(name)
         if name in _ARITH and isinstance(args[0].dtype, DecimalType):
@@ -131,9 +153,94 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
     raise TypeError(f"cannot resolve {expr!r}")
 
 
-def _literal_type(value) -> DataType:
-    from velox_tpu_torch.types import BIGINT, VARCHAR
+#: date parts that read DATE (day) lanes
+_DAY_PART_FNS = {
+    "year", "month", "day", "day_of_month", "day_of_week", "dow",
+    "day_of_year", "doy", "quarter", "week", "week_of_year",
+    "last_day_of_month",
+}
+#: parts of the time of day, which read TIMESTAMP lanes
+_TIME_PART_FNS = {"hour", "minute", "second", "millisecond"}
 
+
+def _resolve_unit_call(name: str, args) -> Expr:
+    """``date_trunc(unit, x)``, ``date_add(unit, n, x)`` and
+    ``date_diff(unit, a, b)`` specialize on their unit string
+    (velox/functions/prestosql/DateTimeFunctions.h)."""
+    if not (isinstance(args[0], Literal) and isinstance(args[0].value, str)):
+        raise TypeError(f"{name} unit must be a string literal")
+    impl = f"__{name}_{args[0].value.lower()}"
+    lookup_function(impl)      # an unknown unit fails here
+    rest = args[1:]
+    if name == "date_trunc":
+        return Call(rest[0].dtype, impl, rest)
+    if name == "date_add":
+        return Call(rest[1].dtype, impl, rest)
+    return Call(BIGINT, impl, rest)
+
+
+_IDT = TypeKind.INTERVAL_DAY_TIME
+_IYM = TypeKind.INTERVAL_YEAR_MONTH
+
+
+def _resolve_interval_arith(name: str, args) -> Optional[Expr]:
+    """Typed interval arithmetic (velox/functions/prestosql/
+    DateTimeFunctions.h DatePlusInterval, TimestampPlusInterval; interval
+    +/- interval; interval * n), or None when no operand is an interval.
+    A day-time interval is int64 milliseconds, a year-month one int32
+    months; the parser has already folded whole-day literals added to a
+    value into integer day counts."""
+    kinds = [a.dtype.kind if a.dtype is not None else None for a in args]
+    if _IDT not in kinds and _IYM not in kinds:
+        return None
+    if len(args) != 2:
+        raise TypeError(f"{name} takes two arguments")
+    a, b = args
+    ka, kb = kinds
+
+    def neg(e):
+        return Call(e.dtype, "negate", (e,))
+
+    if name == "multiply":
+        it, other = (a, b) if ka in (_IDT, _IYM) else (b, a)
+        if not other.dtype.is_integer:
+            raise TypeError("interval * n expects an integer n")
+        return Call(it.dtype, "multiply", (it, other))
+    # normalize to: temporal-or-interval op interval
+    if kb in (TypeKind.DATE, TypeKind.TIMESTAMP):
+        if name == "minus":
+            raise TypeError("cannot subtract a date from an interval")
+        a, b, ka, kb = b, a, kb, ka
+    if ka == kb:                                  # interval +/- interval
+        return Call(a.dtype, name, (a, b))
+    if ka == TypeKind.DATE:
+        if kb == _IDT:
+            # whole days only (DatePlusInterval's user check), which a
+            # literal shows at bind time
+            if isinstance(b, Literal) and b.value is not None \
+                    and b.value % 86_400_000 != 0:
+                raise TypeError("Cannot add hours/minutes/seconds to a date")
+            days = (Literal(INTEGER, b.value // 86_400_000)
+                    if isinstance(b, Literal) and b.value is not None
+                    else Call(b.dtype, "divide",
+                              (b, Literal(BIGINT, 86_400_000))))
+            return Call(DATE, name, (a, Cast(INTEGER, days, False)))
+        months = b if name == "plus" else neg(b)
+        return Call(DATE, "__date_add_month",
+                    (Cast(INTEGER, months, False), a))
+    if ka == TypeKind.TIMESTAMP:
+        amount = b if name == "plus" else neg(b)
+        if kb == _IDT:
+            return Call(TIMESTAMP, "__date_add_millisecond",
+                        (Cast(BIGINT, amount, False), a))
+        return Call(TIMESTAMP, "__date_add_month",
+                    (Cast(INTEGER, amount, False), a))
+    if ka in (_IDT, _IYM) and kb in (TypeKind.BIGINT, TypeKind.INTEGER):
+        return Call(a.dtype, name, (a, b))
+    raise TypeError(f"no interval overload for {name}({ka}, {kb})")
+
+
+def _literal_type(value) -> DataType:
     if value is None:
         return DataType(TypeKind.UNKNOWN)
     if isinstance(value, bool):
@@ -244,9 +351,11 @@ def _decimal_result(name: str, a: DataType, b: DataType) -> DataType:
 
 def _branch_type(name: str, args) -> DataType:
     """Common result type across value branches (Presto coerces all
-    branches of IF/CASE to a least common type)."""
+    branches of IF/CASE/COALESCE to a least common type)."""
     if name == "if":
         branches = list(args[1:])
+    elif name == "coalesce":
+        branches = list(args)
     else:  # switch: (c1, v1, c2, v2, ..., [else])
         branches = list(args[1::2])
         if len(args) % 2 == 1:
@@ -272,7 +381,8 @@ def _branch_type(name: str, args) -> DataType:
 
 
 def _cast_branches(name: str, args, dtype) -> Tuple[Expr, ...]:
-    """Make all value branches of if/switch share the result type."""
+    """Make all value branches of if/switch/coalesce share the result
+    type."""
     def c(a: Expr) -> Expr:
         if a.dtype == dtype or a.dtype is None:
             return a
@@ -282,6 +392,8 @@ def _cast_branches(name: str, args, dtype) -> Tuple[Expr, ...]:
 
     if name == "if":
         return (args[0],) + tuple(c(a) for a in args[1:])
+    if name == "coalesce":
+        return tuple(c(a) for a in args)
     out = list(args)
     for i in range(1, len(out), 2):
         out[i] = c(out[i])
@@ -571,6 +683,9 @@ def widen_decimal_arith(expr: Expr,
 ValuePair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 _DECIMAL_POW = [10 ** i for i in range(19)]
+_US_DAY = 86_400_000_000
+#: per-row random draws, evaluated here (they need the row capacity)
+_RANDOM = {"rand", "random", "secure_rand", "secure_random"}
 
 
 def _round_div(v: torch.Tensor, p: int) -> torch.Tensor:
@@ -594,8 +709,8 @@ def _eval_cast(v, valid, src: DataType, dst: DataType) -> ValuePair:
         return _round_div(v, _DECIMAL_POW[-ds]).to(lane), valid
     if src_dec:
         if dst.is_floating:
-            return (v.to(torch_dtype(dst.dtype))
-                    / _DECIMAL_POW[src.scale]), valid
+            return true_divide(v.to(torch_dtype(dst.dtype)),
+                               _DECIMAL_POW[src.scale]), valid
         if dst.is_integer:
             q = _round_div(v, _DECIMAL_POW[src.scale])
             return q.to(torch_dtype(dst.dtype)), valid
@@ -616,6 +731,12 @@ def _eval_cast(v, valid, src: DataType, dst: DataType) -> ValuePair:
         return v != 0, valid
     if src.kind == TypeKind.BOOLEAN:
         return v.to(torch_dtype(dst.dtype)), valid
+    # date <-> timestamp (velox/type/TimestampConversion.h)
+    if src.kind == TypeKind.DATE and dst.kind == TypeKind.TIMESTAMP:
+        return v.to(torch.int64) * _US_DAY, valid
+    if src.kind == TypeKind.TIMESTAMP and dst.kind == TypeKind.DATE:
+        return torch.div(v, _US_DAY, rounding_mode="floor").to(
+            torch.int32), valid
     if dst.is_floating or dst.is_integer:
         # Presto cast matrix (velox/type/Conversions.h): float->int rounds
         # HALF AWAY FROM ZERO; overflow / NaN / inf become nulls
@@ -680,7 +801,8 @@ class ExprSet:
         hit = memo.get(expr)
         if hit is None:
             hit = self._eval_inner(expr, arrays, memo, device)
-            memo[expr] = hit
+            if not (isinstance(expr, Call) and expr.name in _RANDOM):
+                memo[expr] = hit      # no two rand() calls share a draw
         return hit
 
     def _literal(self, expr: Literal, device) -> ValuePair:
@@ -743,17 +865,24 @@ class ExprSet:
         if isinstance(expr, TryExpr):
             return self._eval(expr.expr, arrays, memo, device)
         if isinstance(expr, Call):
+            if expr.name in _RANDOM:
+                return self._eval_random(expr, arrays, memo, device)
             pairs = [self._eval(a, arrays, memo, device) for a in expr.args]
             fn = lookup_function(expr.name)
             if not fn.default_nulls:
                 return fn.impl(*pairs)
+            if not pairs:        # a constant: pi(), e(), nan(), infinity()
+                return torch.tensor(fn.impl(), device=device,
+                                    dtype=torch_dtype(expr.dtype.dtype)), None
             values = [p[0] for p in pairs]
-            tensors = [v for v in values if isinstance(v, torch.Tensor)]
-            common = tensors[0].dtype
-            for v in tensors[1:]:
-                common = torch.promote_types(common, v.dtype)
-            vals = fn.impl(*[v.to(common) if isinstance(v, torch.Tensor)
-                             else v for v in values])
+            if fn.promote_args:
+                tensors = [v for v in values if isinstance(v, torch.Tensor)]
+                common = tensors[0].dtype
+                for v in tensors[1:]:
+                    common = torch.promote_types(common, v.dtype)
+                values = [v.to(common) if isinstance(v, torch.Tensor)
+                          else v for v in values]
+            vals = fn.impl(*values)
             valid = None
             for _, va in pairs:
                 if va is not None:
@@ -764,3 +893,21 @@ class ExprSet:
                 valid = torch.broadcast_to(valid, vals.shape)
             return vals, valid
         raise TypeError(f"cannot evaluate {expr!r}")
+
+    def _eval_random(self, expr, arrays, memo, device) -> ValuePair:
+        """rand()/random(): a DOUBLE in [0, 1) for each row of the batch's
+        capacity; rand(n): an integer in [0, n), NULL where n is
+        (velox/functions/prestosql/Rand.h). Each evaluation draws from a
+        generator of its own on the batch's device, seeded from
+        ``os.urandom``; there is no global RNG state."""
+        cap = next((v.shape[0] for v, _ in arrays.values()
+                    if isinstance(v, torch.Tensor) and v.ndim >= 1), 1)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int.from_bytes(os.urandom(8), "little") >> 1)
+        u = torch.rand(cap, generator=gen, dtype=torch.float64,
+                       device=device)
+        if not expr.args:
+            return u, None
+        bound, bvalid = self._eval(expr.args[0], arrays, memo, device)
+        n = torch.clamp(bound, min=1).to(torch.float64)
+        return torch.floor(u * n).to(torch.int64), bvalid

@@ -11,6 +11,11 @@ value lanes. Null handling:
   propagatesNulls fast path, velox/expression/Expr.cpp:1235).
 * ``default_nulls=False``: ``impl`` receives and returns (values, valid)
   pairs and manages validity itself (special forms, coalesce, is_null).
+
+A default-null call casts its operands to one dtype before ``impl`` sees
+them (``promote_args``), as the JAX package's 0-d int64 literals widen an
+int32 column. Functions whose arguments play different roles (a count
+and a date, a value and its digits) opt out and cast what they need.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ class ScalarFunction:
     default_nulls: bool = True
     #: functions safe to apply directly to dictionary codes (eq/neq/in/hash)
     dictionary_safe: bool = False
-    #: deterministic (enables CSE); all are for now
+    #: deterministic (enables CSE); rand and its aliases are not
     deterministic: bool = True
+    #: default-null calls: cast every operand to one dtype first
+    promote_args: bool = True
 
 
 registry: Dict[str, ScalarFunction] = {}
@@ -46,9 +53,11 @@ def register_function(fn: ScalarFunction, overwrite: bool = True) -> None:
 
 
 def lookup_function(name: str) -> ScalarFunction:
+    """The function registered as ``name``; a name the port lacks raises
+    ``NotImplementedError``, as every other missing piece does."""
     try:
         return registry[name]
     except KeyError:
-        raise KeyError(
-            f"no scalar function {name!r}; registered: {sorted(registry)}"
-        )
+        raise NotImplementedError(
+            f"scalar function {name!r} is not ported; registered: "
+            f"{sorted(registry)}") from None

@@ -28,7 +28,8 @@ import torch
 
 from velox_tpu_torch import resolve_device
 from velox_tpu_torch.types import (
-    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, REAL, SMALLINT, TINYINT, VARCHAR,
+    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, REAL, SMALLINT, TIMESTAMP,
+    TINYINT, VARCHAR,
 )
 from velox_tpu_torch.types.types import DataType, DecimalType, RowType, TypeKind
 from velox_tpu_torch.vector.batch import Batch
@@ -86,11 +87,17 @@ def _sorted_dictionary(codes: np.ndarray, values: Sequence[str]):
     return Dictionary(list(values[kept[order]])), out.astype(np.int32)
 
 
+def _is_date(arr: np.ndarray) -> bool:
+    return arr.dtype == np.dtype("datetime64[D]")
+
+
 def _column_type(name: str, arr: np.ndarray, dictionaries) -> DataType:
     if name in dictionaries:
         return VARCHAR
     if arr.dtype.kind == "M":
-        return DATE
+        # day precision is a DATE; any finer unit a microsecond
+        # TIMESTAMP, as the JAX package's Arrow ingest keeps it
+        return DATE if _is_date(arr) else TIMESTAMP
     try:
         return _NP_TYPES[arr.dtype]
     except KeyError:
@@ -98,9 +105,12 @@ def _column_type(name: str, arr: np.ndarray, dictionaries) -> DataType:
 
 
 def _lane(arr: np.ndarray) -> np.ndarray:
-    """Host lane values: dates as int32 days since the epoch."""
+    """Host lane values: dates as int32 days since the epoch, timestamps
+    as int64 microseconds since the epoch."""
     if arr.dtype.kind == "M":
-        return arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+        if _is_date(arr):
+            return arr.astype(np.int64).astype(np.int32)
+        return arr.astype("datetime64[us]").astype(np.int64)
     return arr
 
 

@@ -357,25 +357,46 @@ def result_arrays(plan, names) -> Arrays:
     return out
 
 
-def compare(got: Arrays, want: Arrays, rtol: float = 1e-9) -> Optional[str]:
-    """None when ``got`` equals ``want``: the same rows, the same NULLs,
-    integer values exactly and floats to ``rtol``; else what differs."""
-    for name, (wv, wm) in want.items():
-        gv, gm = got[name]
-        if len(gv) != len(wv):
-            return f"{name}: {len(gv)} rows, want {len(wv)}"
+def _compare_column(name, got, want, rtol: float, atol: float):
+    """None when one column equals its oracle (see ``compare``)."""
+    (gv, gm), (wv, wm) = got, want
+    if len(gv) != len(wv):
+        return f"{name}: {len(gv)} rows, want {len(wv)}"
+    if (gm is None) != (wm is None) or (
+            gm is not None and not np.array_equal(gm, wm)):
         gmask = np.ones(len(gv), bool) if gm is None else gm
         wmask = np.ones(len(wv), bool) if wm is None else wm
-        if not np.array_equal(gmask, wmask):
-            bad = np.flatnonzero(gmask != wmask)
+        bad = np.flatnonzero(gmask != wmask)
+        if len(bad):
             return f"{name}: NULLs differ at {len(bad)} rows, first {bad[0]}"
-        g, w = gv[wmask], wv[wmask]
-        if np.asarray(w).dtype.kind == "f":
-            ok = np.abs(g - w) <= rtol * np.abs(w)
-        else:
-            ok = g == w
-        if not ok.all():
-            i = int(np.flatnonzero(~ok)[0])
-            return (f"{name}: {int((~ok).sum())} values differ, first at "
-                    f"row {i}: {g[i]!r}, want {w[i]!r}")
+    g, w = (gv, wv) if wm is None else (gv[wm], wv[wm])
+    if np.asarray(w).dtype.kind == "f":
+        with np.errstate(invalid="ignore"):
+            ok = np.abs(g - w) <= atol + rtol * np.abs(w)
+            if not ok.all():
+                # an infinity equals itself, NaN equals NaN
+                bad = np.flatnonzero(~ok)
+                ok[bad] = (g[bad] == w[bad]) | (np.isnan(g[bad])
+                                                & np.isnan(w[bad]))
+    else:
+        ok = g == w
+    if not ok.all():
+        i = int(np.flatnonzero(~ok)[0])
+        return (f"{name}: {int((~ok).sum())} values differ, first at "
+                f"row {i}: {g[i]!r}, want {w[i]!r}")
     return None
+
+
+def compare(got: Arrays, want: Arrays, rtol: float = 1e-9,
+            atol: float = 0.0) -> Optional[str]:
+    """None when ``got`` equals ``want``: the same rows, the same NULLs,
+    integer values exactly and floats to ``atol + rtol * |want|`` (NaN
+    equal to NaN, an infinity to itself); else what differs. Columns are
+    compared in threads (numpy releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        errs = list(pool.map(
+            lambda n: _compare_column(n, got[n], want[n], rtol, atol),
+            list(want)))
+    return next((e for e in errs if e is not None), None)

@@ -33,6 +33,12 @@ def to_int(t: torch.Tensor) -> int:
     return int(t.item())
 
 
+def any_true(t: torch.Tensor) -> bool:
+    """Whether any element of a device tensor is true."""
+    _tick()
+    return bool(t.any().item())
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A device tensor copied to a host numpy array."""
     _tick()

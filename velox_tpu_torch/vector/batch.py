@@ -25,6 +25,7 @@ from velox_tpu_torch.vector.column import Column, Dictionary
 LANE = 128
 
 _EPOCH = datetime.date(1970, 1, 1)
+_EPOCH_TS = datetime.datetime(1970, 1, 1)
 _DEC_CTX = decimal.Context(prec=60)
 
 
@@ -146,8 +147,9 @@ class Batch:
     # --------------------------------------------------------- host output
     def to_pydict(self, limit: Optional[int] = None) -> Dict[str, list]:
         """Materialize the active rows on the host. Decimals come out as
-        ``decimal.Decimal``, strings as ``str`` and dates as
-        ``datetime.date``, as the JAX package's Arrow output gives them.
+        ``decimal.Decimal``, strings as ``str``, dates as ``datetime.date``
+        and timestamps as ``datetime.datetime``, as the JAX package's
+        Arrow output gives them.
         One device-to-host copy per lane, after the selection."""
         from velox_tpu_torch.utils.syncs import nonzero, to_numpy
 
@@ -167,6 +169,9 @@ class Batch:
                       for v in vals.tolist()]
             elif col.dtype.kind == TypeKind.DATE:
                 py = [_EPOCH + datetime.timedelta(days=int(v))
+                      for v in vals.tolist()]
+            elif col.dtype.kind == TypeKind.TIMESTAMP:
+                py = [_EPOCH_TS + datetime.timedelta(microseconds=int(v))
                       for v in vals.tolist()]
             else:
                 py = vals.tolist()
