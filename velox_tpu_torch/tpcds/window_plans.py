@@ -329,6 +329,13 @@ def result_arrays(plan, names) -> Arrays:
     """Run ``plan`` through the port's Task and take ``names`` from its
     result batches as numpy arrays (active rows, in emitted order), with
     validity masks (None where a column has no NULLs)."""
+    return {n: (v, m) for n, (v, m, _) in result_columns(plan, names).items()}
+
+
+def result_columns(plan, names) -> Dict[str, tuple]:
+    """``result_arrays`` with each column's dictionary: (values, mask,
+    dictionary or None). Every batch of a string column must share one
+    dictionary."""
     from velox_tpu_torch.exec.task import Task
     from velox_tpu_torch.plan.builder import PlanBuilder
     from velox_tpu_torch.utils.syncs import nonzero, to_numpy
@@ -337,10 +344,13 @@ def result_arrays(plan, names) -> Arrays:
         plan = plan.build()
     vals = {n: [] for n in names}
     valid = {n: [] for n in names}
+    dicts: Dict[str, object] = {}
     for b in Task(plan).run():
         idx = nonzero(b.sel)
         for n in names:
             c = b.column(n)
+            if dicts.setdefault(n, c.dictionary) is not c.dictionary:
+                raise AssertionError(f"{n}: batches differ in dictionary")
             vals[n].append(to_numpy(c.values.index_select(0, idx)))
             valid[n].append(None if c.valid is None
                             else to_numpy(c.valid.index_select(0, idx)))
@@ -353,7 +363,7 @@ def result_arrays(plan, names) -> Arrays:
                 for v, m in zip(vals[n], masks)])
         else:
             mask = None
-        out[n] = (np.concatenate(vals[n]), mask)
+        out[n] = (np.concatenate(vals[n]), mask, dicts.get(n))
     return out
 
 
