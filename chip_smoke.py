@@ -86,6 +86,24 @@ Phases (any failure ends the run with a nonzero exit code):
    ``lower(l_returnflag)`` and ``concat(l_linestatus, '-')`` through
    ``run_plan``, exact against its oracle, which must launch B2 once per
    split.
+11. (right after phase 10, on the same tables) the rest of the join
+   family and the single-argument aggregates
+   (``velox_tpu_torch/tpch/join_agg_plans.py``): full, right and
+   right-semi joins, each with and without a filter that reads a column
+   of each side and with ``optimize_plans`` on (merge probes) and off
+   (hash probes), every result exact against its oracle, each family
+   shown to hold every kind of row it claims (probe-only, build-only,
+   resurrected, filtered-out), the probe forms and what each probe
+   pushed into its scan recorded (the full join pushes nothing); TPC-H
+   Q13 with its predicate in the left join's filter, equal to Q13's
+   oracle, its filter's first bind timed alone; and the 14 new
+   aggregates over lineitem grouped by Q1's keys (kArray), by
+   ``l_suppkey`` (generic) and by ``l_orderkey`` (streaming), each
+   value against numpy (the variance family and the moments through the
+   extract formulas, held in turn against numpy's ``var``/``std`` and
+   scipy's ``skew``/``kurtosis``; ``checksum`` exactly against a numpy
+   splitmix64 written here), each plan timed and profiled as the queries
+   are.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -699,6 +717,10 @@ def run_join_queries(card: str, times: dict) -> dict:
     t0 = time.perf_counter()
     strings = run_string_families(tables, dicts, card, times)
     log(f"phase 10 (string functions): {(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    join_agg = run_join_agg(tables, dicts, card, times)
+    log(f"phase 11 (joins and aggregates): "
+        f"{(time.perf_counter() - t0):.3f} s")
 
     for t in tables:
         drop_table(t)
@@ -718,7 +740,7 @@ def run_join_queries(card: str, times: dict) -> dict:
         drop_table(t)
     torch.cuda.empty_cache()
     return {"runs": counts, "rank_forms_ms": rank_ms, "more": more,
-            "scalar": scalar, "strings": strings}
+            "scalar": scalar, "strings": strings, "join_agg": join_agg}
 
 
 #: the columns Q3 and Q18 read (the DOUBLE run registers only these)
@@ -1083,6 +1105,223 @@ def run_string_families(tables, dicts, card: str, times: dict) -> dict:
     return out
 
 
+# ------------------------------------------- joins and aggregates
+
+_SM_M1 = np.uint64(0xBF58476D1CE4E5B9)
+_SM_M2 = np.uint64(0x94D049BB133111EB)
+
+
+def splitmix64(x: np.ndarray) -> np.ndarray:
+    """The splitmix64 finalizer over int64 values, in numpy uint64 (the
+    oracle of ``checksum``, written apart from the port's hash)."""
+    z = x.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        z = (z ^ (z >> np.uint64(30))) * _SM_M1
+        z = (z ^ (z >> np.uint64(27))) * _SM_M2
+    return z ^ (z >> np.uint64(31))
+
+
+def checksum_hashes(values: np.ndarray) -> np.ndarray:
+    """Each value's splitmix64 as ``checksum`` hashes it: an integer as
+    itself, a DOUBLE as ``trunc(x * 1e6)`` (every value here is finite
+    and in range, where the cast's saturation never acts); a group's
+    checksum is the wrapping sum of its rows' hashes."""
+    if values.dtype.kind == "f":
+        values = (values * 1e6).astype(np.int64)
+    return splitmix64(values)
+
+
+def bind_join_filter(plan) -> float:
+    """Bind the filter of ``plan``'s first join against both sides'
+    dictionaries and stats, as its probe does; returns the seconds."""
+    from velox_tpu_torch.exec.operator import batch_ranges, eval_dicts
+    from velox_tpu_torch.exec.operators import _join_filter_schema
+    from velox_tpu_torch.expr.compiler import ExprSet
+    from velox_tpu_torch.io.catalog import get_table
+    from velox_tpu_torch.plan.nodes import HashJoinNode, TableScanNode
+
+    def first_scan(n):
+        while not isinstance(n, TableScanNode):
+            n = n.sources[0]
+        return get_table(n.table).batches[0]
+
+    node = plan
+    while not isinstance(node, HashJoinNode):
+        node = node.sources[0]
+    dicts, ranges = {}, {}
+    for side in (node.left, node.right):
+        b = first_scan(side)
+        dicts.update(eval_dicts(b))
+        ranges.update(batch_ranges(b))
+    t0 = time.perf_counter()
+    ExprSet([node.filter], _join_filter_schema(node), dicts, ranges)
+    return time.perf_counter() - t0
+
+
+def run_join_agg(tables, dicts, card: str, times: dict) -> dict:
+    """Phase 11, over the TPC-H tables that phase 4 registered (cents,
+    narrow lanes): ``velox_tpu_torch/tpch/join_agg_plans.py``'s joins in
+    every form and its aggregates in three groupings. Each plan runs once
+    with its host syncs, launches, probe forms and peak memory counted,
+    is checked against its oracle, then timed (median of 5 warm runs)
+    and profiled once. Returns, per plan label, the counts and times."""
+    import torch
+
+    from velox_tpu_torch.exec.task import Task
+    from velox_tpu_torch.io.catalog import get_table
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.tpch import join_agg_plans as ja
+    from velox_tpu_torch.tpch.oracle import answer
+    from velox_tpu_torch.tpcds.window_plans import result_columns
+    from velox_tpu_torch.utils.config import config
+
+    out = {}
+    splits = len(get_table("lineitem").batches)
+
+    def measure(label, plan, drain):
+        wall = wall_ms(drain)
+        busy = device_breakdown(drain, label, wall, card, top=3)
+        times[label] = wall
+        return {"wall_ms": wall, "busy_ms": busy}
+
+    # J: the join family
+    for name, (make, oracle, kinds) in ja.JOINS.items():
+        for filtered in (False, True):
+            want, seen = oracle(tables, dicts, filtered, SPLIT_ROWS)
+            claimed = kinds + (ja.FILTERED_KINDS[name] if filtered else ())
+            check(all(seen[k] > 0 for k in claimed),
+                  f"join {name}: a claimed kind of row is empty: {seen}")
+            if name == "right":
+                check(seen["probe_splits_matched"] == splits,
+                      f"right join: matches in {seen} of {splits} splits")
+            for optimize in (True, False):
+                config.optimize_plans = optimize
+                label = (f"join {name}{' filtered' if filtered else ''} "
+                         f"{'optimized' if optimize else 'unoptimized'}")
+                plan = make(PlanBuilder, filtered).build()
+                task = Task(plan)
+                with probe_forms() as forms:
+                    got, run = _peak_run(lambda: ja.run_rows(task))
+                pushed = ja.pushed_filters(task)
+                check_result(got, want, label)
+                check(len(pushed) == 1, f"{label}: probes {pushed}")
+                if name == "full":
+                    check(pushed[0].endswith(": none"),
+                          f"{label} pushed a filter: {pushed}")
+                else:
+                    check(not pushed[0].endswith(": none"),
+                          f"{label} pushed nothing: {pushed}")
+                out[label] = {**run, **measure(
+                    label, plan, lambda: ja.run_rows(Task(plan))),
+                    "probes": forms, "pushed": pushed, "kinds": seen,
+                    "rows": len(next(iter(want.values())))}
+                log(f"{label}: {out[label]['rows']} rows equal to the "
+                    f"oracle; kinds {seen}; probe forms {forms}; pushed "
+                    f"{pushed}; host syncs {run['syncs']}, launches B1 "
+                    f"{run['grouped_sum_i32']} B2 "
+                    f"{run['grouped_multi_sum_i32']}; warm wall "
+                    f"{out[label]['wall_ms']} ms, busy "
+                    f"{out[label]['busy_ms']} ms (share "
+                    f"{out[label]['busy_ms'] / out[label]['wall_ms']}); "
+                    f"peak device memory {run['peak_gb']:.3f} GiB on {card}")
+    config.optimize_plans = True
+
+    # J-left: Q13 with its predicate in the left join's filter
+    plan = ja.plan_q13_join_filter(PlanBuilder).build()
+    bind_s = bind_join_filter(plan)
+    want = answer(13, tables, dicts, SF)
+    seen = ja.q13_kinds(tables, dicts)
+    check(seen["probe_only"] > 0 and seen["filtered_out"] > 0,
+          f"J-left: a claimed kind of row is empty: {seen}")
+    task = Task(plan)
+    with probe_forms() as forms:
+        got, run = _peak_run(lambda: ja.run_rows(task))
+    check_result(got, want, "J-left (Q13, filtered left join)")
+    label = "join left filtered (Q13)"
+    out[label] = {**run, **measure(label, plan,
+                                   lambda: ja.run_rows(Task(plan))),
+                  "bind_s": bind_s, "probes": forms,
+                  "pushed": ja.pushed_filters(task), "kinds": seen,
+                  "rows": len(want["c_count"])}
+    log(f"{label}: {len(want['c_count'])} rows equal to Q13's oracle; "
+        f"kinds {seen}; filter bind {bind_s:.3f} s; probe forms {forms}; "
+        f"host syncs {run['syncs']}; warm wall {out[label]['wall_ms']} ms, "
+        f"busy {out[label]['busy_ms']} ms; peak device memory "
+        f"{run['peak_gb']:.3f} GiB on {card}")
+
+    # A: the aggregates in three groupings
+    li = tables["lineitem"]
+    args = ja.agg_arguments(li)
+    hashes = {name: checksum_hashes(args[a])
+              for part in ja.AGG_PARTS.values()
+              for name, fn, a in part if fn == "checksum"}
+    for grouping, keys in ja.GROUPINGS.items():
+        t0 = time.perf_counter()
+        want, (perm, starts) = ja.oracle_aggregates(li, grouping, args)
+        checksums = {name: np.add.reduceat(h[perm], starts).view(np.int64)
+                     for name, h in hashes.items()}
+        oracle_s = time.perf_counter() - t0
+        if grouping == "suppkey":
+            # the formulas against numpy's and scipy's sample statistics
+            # on well-conditioned groups (about 600 rows each)
+            t0 = time.perf_counter()
+            agree = ja.scipy_agreement(args, perm, starts)
+            check(agree <= RTOL,
+                  f"extract formulas against numpy/scipy: {agree}")
+            log(f"aggregate formulas against numpy var/std and scipy "
+                f"skew/kurtosis (bias=False) over 200 groups by "
+                f"l_suppkey: largest relative difference {agree} "
+                f"({(time.perf_counter() - t0):.3f} s)")
+        if grouping == "orderkey":
+            sk = want["sk_price"][1]
+            check(sk.any() and not sk.all(),
+                  "orderkey groups: the n >= 3 NULL rule is vacuous")
+        for part, aggs in ja.AGG_PARTS.items():
+            label = f"aggregate {part} by {grouping}"
+            plan = ja.plan_aggregates(PlanBuilder, grouping, part).build()
+            names = list(plan.output_type.names)
+            task = Task(plan)
+            got, run = _peak_run(lambda: result_columns(task, names))
+            mode = ja.aggregation_mode(task)
+            if "arb_mode" in got:
+                check(list(got["arb_mode"][2].values)
+                      == list(dicts["l_shipmode"]),
+                      f"{label}: arbitrary(l_shipmode) lost its dictionary")
+            got = {n: (v, m) for n, (v, m, d) in got.items()}
+            err, stats = ja.check_aggregates(got, want, keys)
+            check(err is None, f"{label}: {err}")
+            order = np.lexsort([got[k][0] for k in reversed(keys)])
+            for name in checksums:
+                if name in got:
+                    check(np.array_equal(got[name][0][order],
+                                         checksums[name]),
+                          f"{label}: {name} differs from splitmix64")
+            expect = {"q1_keys": "kArray", "suppkey": "generic",
+                      "orderkey": "streaming"}[grouping]
+            check(mode == expect, f"{label} ran {mode}, want {expect}")
+            rows = len(got[keys[0]][0])
+            del got
+
+            def drain():
+                for _ in Task(plan).run():
+                    pass
+
+            out[label] = {**run, **measure(label, plan, drain),
+                          "operator": mode, "rows": rows,
+                          "oracle_s": oracle_s, "errors": stats}
+            log(f"{label}: {rows} groups equal to the oracle through "
+                f"{mode} ({oracle_s:.3f} s of oracle on the host); float "
+                f"errors {stats}; host syncs {run['syncs']}, launches B1 "
+                f"{run['grouped_sum_i32']} B2 "
+                f"{run['grouped_multi_sum_i32']}; warm wall "
+                f"{out[label]['wall_ms']} ms, busy {out[label]['busy_ms']} "
+                f"ms (share {out[label]['busy_ms'] / out[label]['wall_ms']})"
+                f"; peak device memory {run['peak_gb']:.3f} GiB on {card}")
+        del want
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------- TPC-DS, windows
 
 DS_SF = 10
@@ -1395,6 +1634,7 @@ def main() -> int:
                      for n, run in joins["scalar"].items()})
     by_query.update({f"string {n}": run
                      for n, run in joins["strings"].items()})
+    by_query.update(joins["join_agg"])
     by_query.update(ds)
     by_query.update(windows)
     more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
@@ -1418,6 +1658,7 @@ def main() -> int:
                       "more_queries": joins["more"],
                       "scalar_functions": joins["scalar"],
                       "string_functions": joins["strings"],
+                      "join_agg": joins["join_agg"],
                       "rank_forms_ms": joins["rank_forms_ms"],
                       "tpcds_queries": ds, "window_plans": windows}))
     print(card)

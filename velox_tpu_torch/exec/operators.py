@@ -6,9 +6,9 @@ scalar part of ``ProjectOp``, ``HashAggregationOp`` (kArray and the
 generic sort-based mode, SINGLE step, single-step ``count(distinct)``),
 ``StreamingAggregationOp`` (with a fused HAVING), ``OrderByOp``,
 ``TopNOp``, ``LimitOp``, the hash and merge joins (``JoinKeyCodec``,
-``JoinBridge``, ``HashBuildOp``, ``HashProbeOp`` for inner, left outer,
-left-semi, null-aware anti and anti joins with residual filters,
-``MergeJoinBuildOp``, ``MergeJoinProbeOp``), the cross join
+``JoinBridge``, ``HashBuildOp``, ``HashProbeOp`` for all eight join
+types with residual filters, ``MergeJoinBuildOp``,
+``MergeJoinProbeOp``), the cross join
 (``CrossBuildOp``, ``CrossProbeOp``), ``EnforceSingleRowOp``, the
 ``ValuesOp`` leaf and ``AssignUniqueIdOp``. Each runs
 eagerly on the device its batches live on. Blocking operators buffer in
@@ -26,7 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from velox_tpu_torch import resolve_device
+from velox_tpu_torch import resolve_device, torch_dtype
 from velox_tpu_torch.types import BIGINT, BOOLEAN
 from velox_tpu_torch.types.types import TypeKind, row_type
 from velox_tpu_torch.vector.batch import Batch, concat_batches, round_capacity
@@ -38,7 +38,7 @@ from velox_tpu_torch.ops.groupby import (
 )
 from velox_tpu_torch.ops.join import (
     build_join_index, build_join_index_presorted, build_join_table,
-    expand_matches, output_counts, probe_join_index,
+    build_matched_flags, expand_matches, output_counts, probe_join_index,
     probe_join_index_merge, probe_join_index_merge_repair, probe_join_table,
     valid_ascending_code,
 )
@@ -379,7 +379,9 @@ class HashAggregationOp(Operator):
         if not config.narrow_lanes or not (2 <= G <= 128):
             return None
         for spec, (vals, mask) in zip(self.specs, inputs):
-            if spec.fn not in ("sum", "count", "avg"):
+            # count_if's argument is a bool, so it never gets past the
+            # check below, in the reference too
+            if spec.fn not in ("sum", "count", "count_if", "avg"):
                 return None
             if vals is not None and (vals.dtype.is_floating_point
                                      or vals.dtype == torch.bool):
@@ -389,8 +391,8 @@ class HashAggregationOp(Operator):
         zero32 = torch.zeros((), dtype=torch.int32, device=sel.device)
         contribs = []
         layout = []  # (agg index, lane index, left shift) per row
-        for ai, (vals, mask) in enumerate(inputs):
-            if vals is not None:
+        for ai, (spec, (vals, mask)) in enumerate(zip(self.specs, inputs)):
+            if vals is not None and spec.fn != "count":
                 if vals.element_size() <= 4:
                     contribs.append(torch.where(mask, vals.to(torch.int32),
                                                 zero32))
@@ -408,7 +410,7 @@ class HashAggregationOp(Operator):
                     layout.append((ai, 0, 28))
                 contribs.append(mask.to(torch.int32))
                 layout.append((ai, 1, 0))
-            else:  # count(*): a single count lane
+            else:  # count(*) and count(x): a single count lane
                 contribs.append(mask.to(torch.int32))
                 layout.append((ai, 0, 0))
         contribs.append(sel.to(torch.int32))  # "seen" groups
@@ -643,8 +645,11 @@ class StreamingAggregationOp(HashAggregationOp):
     sync), reduce every lane over its group with a segmented scan
     (``ops/groupby.segment_scan``: exact for integers, no prefix
     subtraction for floats) and read each group's total at its last row.
-    The carried open group merges into the batch's first group when the
-    keys match, else it is emitted on its own, first. Every group but the
+    An aggregate without scan lanes (``bool_and``, ``arbitrary``, the
+    moments, ...) scatters into one slot a group instead, as the
+    reference's non-scan step does. The carried open group merges into
+    the batch's first group when the keys match, else it is emitted on
+    its own, first. Every group but the
     batch's last is emitted; the last becomes the new carry, flushed after
     the input ends. The reference splits this into two programs sized by
     a synced count (to give XLA static shapes); eager torch learns the
@@ -664,10 +669,6 @@ class StreamingAggregationOp(HashAggregationOp):
         if self.has_distinct:
             raise NotImplementedError(
                 "distinct aggregates stream nowhere: aggregate them")
-        for spec, fn in zip(self.specs, self.fns):
-            if not fn.scannable:
-                raise NotImplementedError(
-                    f"streaming {spec.fn} is not ported (no scan lanes)")
         #: (key pairs of 1-element tensors, lanes per aggregate) or None
         self._carry: Optional[Tuple[list, list]] = None
         having = getattr(node, "having", None)
@@ -723,9 +724,23 @@ class StreamingAggregationOp(HashAggregationOp):
         # group totals: each lane's segmented scan at the group's last row
         inputs = self._agg_inputs(pcols, torch.ones(
             n, dtype=torch.bool, device=device))
+        gids = None
         totals = []
         for ai, (fn, at, (vals, mask)) in enumerate(zip(
                 self.fns, self.arg_types, inputs)):
+            if not fn.scannable:
+                # no scan lanes: scatter into one slot a group, then
+                # combine the carried group into slot 0
+                if gids is None:
+                    gids = torch.cumsum(head, 0) - 1
+                accs = fn.accumulate(
+                    tuple(init_lane(lane, at, ng, device)
+                          for lane in fn.lanes), gids, vals, mask)
+                if carry is not None:
+                    accs = fn.combine(accs, gids[:1], carry[1][ai],
+                                      merge[None])
+                totals.append(list(accs))
+                continue
             lanes = []
             for li, (lane, c) in enumerate(zip(
                     fn.lanes, fn.lane_contribs(vals, mask, at))):
@@ -1108,6 +1123,10 @@ class JoinBridge:
         #: 0-d device bool: some live build row has a null key (read on
         #: the host only by the null-aware anti join)
         self.build_has_null_key: Optional[torch.Tensor] = None
+        #: (capacity,) device bool: the build rows some probe row matched
+        #: (under the filter), OR-ed over probe batches and expansion
+        #: chunks; read at the finish of right, full and right-semi joins
+        self.matched: Optional[torch.Tensor] = None
         #: a build spilled to host partitions (no spill in this port yet)
         self.spill_parts = None
         self.on_ready: List[Callable] = []
@@ -1190,6 +1209,8 @@ def build_bridge_state(bridge: JoinBridge, node, big: Batch,
     bridge.key_lo = rng_hint[0] if rng_hint else 0
     bridge.build_has_null_key = (None if null_valid is None
                                  else (big.sel & ~null_valid).any())
+    bridge.matched = torch.zeros(big.capacity, dtype=torch.bool,
+                                 device=big.device)
     bridge.mark_ready()
 
 
@@ -1211,23 +1232,35 @@ def _expr_fields(expr) -> set:
 
 
 class HashProbeOp(Operator):
-    """velox/exec/HashProbe.cpp: inner, left outer, left-semi, null-aware
-    anti (NOT IN) and anti (NOT EXISTS) joins, each with an optional
-    residual filter (inner, semi and anti). Per probe batch, the (first,
-    count) match runs come from the kArray table when the build range is
-    small, else from a binary search (or, in a merge join over an
-    ascending probe lane, the flipped merge probe). Unfiltered semi and
-    anti joins only narrow the batch's selection. The other forms read
-    the match total on the host (one sync) and expand the runs
-    probe-major: a left join emits one row with null build columns for a
-    probe row without a match; a filter is evaluated on every match pair,
-    then reduced per probe row for semi and anti. An expansion of more
-    than ``_EXPAND_CHUNK`` pairs runs in chunks of whole probe rows, so a
-    probe batch never holds more pairs than that at once."""
+    """velox/exec/HashProbe.cpp: all eight join types (inner, left, right
+    and full outer, left- and right-semi, null-aware anti (NOT IN) and
+    anti (NOT EXISTS)), each with an optional residual filter. Per probe
+    batch, the (first, count) match runs come from the kArray table when
+    the build range is small, else from a binary search (or, in a merge
+    join over an ascending probe lane, the flipped merge probe).
+    Unfiltered left-semi and anti joins only narrow the batch's
+    selection. The other forms read the match total on the host (one
+    sync) and expand the runs probe-major: a left or full join emits one
+    row with null build columns for a probe row without a match; a
+    filter is evaluated on every match pair, then reduced per probe row
+    for semi and anti. An expansion of more than ``_EXPAND_CHUNK`` pairs
+    runs in chunks of whole probe rows, so a probe batch never holds
+    more pairs than that at once.
 
-    _SUPPORTED = (JoinType.INNER, JoinType.LEFT, JoinType.LEFT_SEMI,
-                  JoinType.ANTI, JoinType.ANTI_SIMPLE)
+    Right, full and right-semi joins OR the build rows that matched (and
+    passed the filter) into the bridge's ``matched`` flags; after the
+    last probe batch they emit the build side: the unmatched build rows
+    with null probe columns (right, full) or the matched ones (right
+    semi), in build-batch order. A filtered left or full join keeps the
+    passing pairs and the unmatched probe rows, then emits the batch's
+    probe rows whose every match failed the filter, null-extended, as
+    one batch after the batch's joined rows."""
+
     _SEMI_LIKE = (JoinType.LEFT_SEMI, JoinType.ANTI, JoinType.ANTI_SIMPLE)
+    #: joins that keep the probe rows without a (passing) match
+    _LEFT_LIKE = (JoinType.LEFT, JoinType.FULL)
+    #: joins that emit build rows after the last probe batch
+    _TRACK_MATCHED = (JoinType.RIGHT, JoinType.FULL, JoinType.RIGHT_SEMI)
 
     #: value sets at most this large push as exact sorted IN-tables
     _SET_PUSH_MAX = 4096
@@ -1240,21 +1273,17 @@ class HashProbeOp(Operator):
 
     def __init__(self, node, bridge: JoinBridge):
         super().__init__(node)
-        if node.join_type not in self._SUPPORTED:
-            raise NotImplementedError(
-                f"{node.join_type.value} joins are not ported to "
-                "velox_tpu_torch yet")
         self._filter = None
         if node.filter is not None:
-            if node.join_type == JoinType.LEFT:
-                raise NotImplementedError(
-                    "filters on left joins are not ported to "
-                    "velox_tpu_torch yet")
             self._filter = ExprEvaluator([node.filter],
                                          _join_filter_schema(node))
         self.bridge = bridge
         self.jt = node.join_type
         self._queue: collections.deque = collections.deque()
+        self._final_emitted = False
+        #: the probe columns' dictionaries, for the null probe columns of
+        #: the build rows a right or full join emits last
+        self._probe_dicts: Dict[str, Dictionary] = {}
         #: the probe side's scan, set by LocalPlanner when the pushdown
         #: applies
         self.pushdown_scan: Optional[TableScanOp] = None
@@ -1455,20 +1484,29 @@ class HashProbeOp(Operator):
             raise RuntimeError("probe before the build finished")
         if not self._pushdown_done:
             self._push_dynamic_filter()
+        for name in self.node.left.output_type.names:
+            d = batch.column(name).dictionary
+            if d is not None:
+                self._probe_dicts.setdefault(name, d)
         (first, count), null_valid = self._runs(batch)
         out_names = self.output_type.names
-        semi = self.jt in self._SEMI_LIKE
+        jt = self.jt
+        semi = jt in self._SEMI_LIKE
         if semi and self._filter is None:
             sel = self._semi_sel(batch.sel, count, null_valid)
             self._queue.append(batch.with_sel(sel).project(out_names))
             return
-        emit = batch.sel if self.jt == JoinType.LEFT else None
-        names = list(out_names)
+        left_like = jt in self._LEFT_LIKE
+        track = jt in self._TRACK_MATCHED
+        emit = batch.sel if left_like else None
+        # a right-semi join's rows come from the bridge at the finish:
+        # its pairs only feed the filter
+        names = [] if jt == JoinType.RIGHT_SEMI else list(out_names)
         if self._filter is not None:
             names = list(dict.fromkeys(
                 names + sorted(_expr_fields(self.node.filter))))
         hits = None
-        if semi:
+        if self._filter is not None and (semi or left_like):
             # per probe row: its match pairs that pass the filter
             hits = torch.zeros(batch.capacity + 1, dtype=torch.int32,
                                device=batch.device)
@@ -1476,15 +1514,31 @@ class HashProbeOp(Operator):
                 first, count, emit):
             pairs = self._pairs_batch(batch, names, probe_rows, build_rows,
                                       matched, out_sel, n)
-            if self._filter is None:
-                self._queue.append(pairs)
-                continue
-            passing = self._filter.filter_sel(pairs) & matched
-            if semi:
+            passing = None
+            if self._filter is not None:
+                passing = self._filter.filter_sel(pairs) & matched
+            if track:
+                hit = matched & out_sel
+                if passing is not None:
+                    hit = hit & passing
+                br.matched = br.matched | build_matched_flags(
+                    br.matched.shape[0], build_rows, hit,
+                    torch.ones_like(out_sel))
+            if hits is not None:
                 hits.index_add_(0, torch.where(
                     passing, probe_rows,
                     torch.full_like(probe_rows, batch.capacity)),
                     passing.to(torch.int32))
+            if semi or jt == JoinType.RIGHT_SEMI:
+                continue   # semi: at the batch's end; right semi: finish
+            if passing is None:
+                self._queue.append(pairs)
+            elif left_like:
+                # passing pairs and unmatched probe rows; the build
+                # columns of a failed pair are null
+                keep = passing | (out_sel & ~matched)
+                self._queue.append(self._failed_pairs_nulled(
+                    pairs, passing).with_sel(keep).project(out_names))
             else:
                 self._queue.append(
                     pairs.with_sel(passing).project(out_names))
@@ -1492,12 +1546,77 @@ class HashProbeOp(Operator):
             sel = self._semi_sel(batch.sel, hits[:batch.capacity],
                                  null_valid)
             self._queue.append(batch.with_sel(sel).project(out_names))
+        elif hits is not None:
+            # probe rows with matches of which none passed come back
+            # null-extended, after the batch's joined rows
+            resurrect = batch.sel & (count > 0) & (hits[:batch.capacity] == 0)
+            self._queue.append(self._null_extended(batch, resurrect))
+
+    def _failed_pairs_nulled(self, pairs: Batch, passing) -> Batch:
+        """``pairs`` with every build column null where ``passing`` is
+        false."""
+        left = set(self.node.left.output_type.names)
+        cols = {}
+        for name, c in pairs.columns.items():
+            if name not in left:
+                c = Column(c.dtype, c.values, _and_valid(c.valid, passing),
+                           c.dictionary, c.stats)
+            cols[name] = c
+        return Batch(cols, pairs.sel, pairs.num_rows)
+
+    def _null_extended(self, batch: Batch, sel) -> Batch:
+        """The probe rows ``sel`` with all-null build columns."""
+        cap = batch.capacity
+        cols = {}
+        for name in self.node.left.output_type.names:
+            cols[name] = batch.column(name)
+        for name, t in zip(self.node.right.output_type.names,
+                           self.node.right.output_type.children):
+            c = self.bridge.build_batch.column(name)
+            cols[name] = Column(
+                t, torch.zeros(cap, dtype=c.values.dtype, device=sel.device),
+                torch.zeros(cap, dtype=torch.bool, device=sel.device),
+                c.dictionary)
+        return Batch(cols, sel).project(self.output_type.names)
+
+    def _emit_build_side(self) -> Optional[Batch]:
+        """After the last probe batch: a right-semi join's matched build
+        rows; a right or full join's unmatched ones with null probe
+        columns (None when there are none: one host read)."""
+        br = self.bridge
+        big = br.build_batch
+        if self.jt == JoinType.RIGHT_SEMI:
+            return big.with_sel(big.sel & br.matched).project(
+                self.output_type.names)
+        sel = big.sel & ~br.matched
+        if syncs.to_int(sel.sum()) == 0:
+            return None
+        cap = big.capacity
+        cols = {}
+        for name, t in zip(self.node.left.output_type.names,
+                           self.node.left.output_type.children):
+            cols[name] = Column(
+                t, torch.zeros(cap, dtype=torch_dtype(t.dtype),
+                               device=big.device),
+                torch.zeros(cap, dtype=torch.bool, device=big.device),
+                _key_dict_for(self._probe_dicts, t, name))
+        for name in self.node.right.output_type.names:
+            cols[name] = big.column(name)
+        return Batch(cols, sel).project(self.output_type.names)
 
     def get_output(self) -> Optional[Batch]:
-        return self._queue.popleft() if self._queue else None
+        if self._queue:
+            return self._queue.popleft()
+        if (self.no_more_input_seen and not self._final_emitted
+                and self.jt in self._TRACK_MATCHED):
+            self._final_emitted = True
+            return self._emit_build_side()
+        return None
 
     def is_finished(self) -> bool:
-        return self.no_more_input_seen and not self._queue
+        if not self.no_more_input_seen or self._queue:
+            return False
+        return (self._final_emitted or self.jt not in self._TRACK_MATCHED)
 
 
 class MergeJoinBuildOp(HashBuildOp):

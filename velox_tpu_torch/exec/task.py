@@ -58,8 +58,11 @@ _SIMPLE_OPERATORS = {
     GroupIdNode: GroupIdOp,
 }
 
-#: join types whose probe can push a build-side filter into its scan
-_PUSHDOWN_JOINS = (JoinType.INNER, JoinType.LEFT_SEMI)
+#: join types whose probe can push a build-side filter into its scan:
+#: those that drop the probe rows without a match (left and full joins
+#: keep them, anti joins want them)
+_PUSHDOWN_JOINS = (JoinType.INNER, JoinType.LEFT_SEMI, JoinType.RIGHT,
+                   JoinType.RIGHT_SEMI)
 
 
 class Pipeline:

@@ -1,7 +1,10 @@
 """Aggregate functions as masked segment reductions, over torch.
 
-The port of the ``sum``/``count``/``avg``/``min``/``max`` part of the JAX
-package's ``functions/aggregates.py``. An accumulator is a struct of tensors, one
+The port of the JAX package's ``functions/aggregates.py``: its 19
+single-argument aggregates (``sum``, ``count``, ``count_if``, ``avg``,
+``min``, ``max``, the variance family, ``bool_and``/``bool_or``,
+``arbitrary``, ``checksum``, ``geometric_mean``, ``skewness``,
+``kurtosis``). An accumulator is a struct of tensors, one
 per lane, of shape ``(num_groups,)``; accumulation is a scatter-add of
 the whole batch into them. Group ids outside ``[0, num_groups)`` (the
 sentinel of inactive rows) are dropped.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from velox_tpu_torch import torch_dtype
-from velox_tpu_torch.types import BIGINT, DOUBLE, REAL, DataType
+from velox_tpu_torch.types import BIGINT, BOOLEAN, DOUBLE, REAL, DataType
 from velox_tpu_torch.types.types import DecimalType, TypeKind
 
 
@@ -242,6 +245,20 @@ register_aggregate(AggregateFunction(
 ))
 
 
+register_aggregate(AggregateFunction(
+    name="count_if",
+    resolve_type=lambda t: BIGINT,
+    lanes=(AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0,
+                   scan_op="add"),),
+    accumulate=lambda accs, gids, values, mask: (
+        scatter_add(accs[0], gids, mask & values),),
+    combine=_count_combine,
+    extract=lambda accs, gm: (accs[0], gm),
+    lane_types=lambda t: (BIGINT,),
+    lane_contribs=lambda values, mask, at: ((mask & values).to(torch.int64),),
+))
+
+
 # ------------------------------------------------------------------ min/max
 
 def _minmax_identity_for(dt: torch.dtype, is_min: bool):
@@ -259,7 +276,11 @@ def _minmax_identity(t: DataType, is_min: bool):
 
 def scatter_minmax(acc: torch.Tensor, gids: torch.Tensor,
                    values: torch.Tensor, is_min: bool) -> torch.Tensor:
-    """``acc.at[gids].min(values, mode="drop")`` (or max)."""
+    """``acc.at[gids].min(values, mode="drop")`` (or max). A bool lane
+    reduces as uint8 (CUDA has no bool ``scatter_reduce_``)."""
+    if acc.dtype == torch.bool:
+        return scatter_minmax(acc.to(torch.uint8), gids,
+                              values.to(torch.uint8), is_min).to(torch.bool)
     G = acc.shape[0]
     g = torch.where((gids >= 0) & (gids < G), gids,
                     torch.full_like(gids, G)).long()
@@ -357,6 +378,262 @@ register_aggregate(AggregateFunction(
                           else torch.float64), mask, 0),
         mask.to(torch.int64)),
 ))
+
+
+# ---------------------------------------------------------- variance family
+
+def _var_lanes():
+    return (
+        AccLane("n", lambda t: np.dtype(np.int64), lambda t: 0,
+                scan_op="add"),
+        AccLane("sum", lambda t: np.dtype(np.float64), lambda t: 0.0,
+                scan_op="add"),
+        AccLane("sumsq", lambda t: np.dtype(np.float64), lambda t: 0.0,
+                scan_op="add"),
+    )
+
+
+def _var_contribs(values, mask, at):
+    v = _masked(values.to(torch.float64), mask, 0.0)
+    return (mask.to(torch.int64), v, v * v)
+
+
+def _var_acc(accs, gids, values, mask):
+    n, s, ss = accs
+    v = _masked(values.to(torch.float64), mask, 0.0)
+    return (scatter_add(n, gids, mask), scatter_add(s, gids, v),
+            scatter_add(ss, gids, v * v))
+
+
+def _add_combine(accs, gids, lanes, mask):
+    """Combine lane by lane, every lane a sum."""
+    return tuple(scatter_add(a, gids, _masked(p.to(a.dtype), mask, 0))
+                 for a, p in zip(accs, lanes))
+
+
+def _make_var(name: str, sample: bool, stddev: bool) -> None:
+    # raw power sums and the JAX package's extract, formula for formula
+    def extract(accs, gm):
+        n, s, ss = accs
+        nf = n.to(torch.float64)
+        safe_n = torch.clamp(nf, min=1.0)
+        m2 = ss - s * s / safe_n
+        denom = torch.clamp(nf - 1.0, min=1.0) if sample else safe_n
+        var = torch.clamp(m2, min=0.0) / denom
+        out = torch.sqrt(var) if stddev else var
+        return out, torch.logical_and(gm, n >= (2 if sample else 1))
+
+    register_aggregate(AggregateFunction(
+        name=name,
+        resolve_type=lambda t: DOUBLE,
+        lanes=_var_lanes(),
+        accumulate=_var_acc,
+        combine=_add_combine,
+        extract=extract,
+        lane_types=lambda t: (BIGINT, DOUBLE, DOUBLE),
+        lane_contribs=_var_contribs,
+    ))
+
+
+_make_var("variance", True, False)
+_make_var("var_samp", True, False)
+_make_var("var_pop", False, False)
+_make_var("stddev", True, True)
+_make_var("stddev_samp", True, True)
+_make_var("stddev_pop", False, True)
+
+
+# ------------------------------------------------------------ bool_and/or
+
+def _make_bool(name: str, is_and: bool) -> None:
+    # a scatter-min (and) or scatter-max (or) of a bool lane
+    def acc_fn(accs, gids, values, mask):
+        return (scatter_minmax(accs[0], gids, _masked(values, mask, is_and),
+                               is_and),
+                scatter_add(accs[1], gids, mask))
+
+    def combine_fn(accs, gids, lanes, mask):
+        return (scatter_minmax(accs[0], gids, _masked(lanes[0], mask, is_and),
+                               is_and),
+                scatter_add(accs[1], gids, _masked(lanes[1], mask, 0)))
+
+    register_aggregate(AggregateFunction(
+        name=name,
+        resolve_type=lambda t: BOOLEAN,
+        lanes=(
+            AccLane("all" if is_and else "any", lambda t: np.dtype(np.bool_),
+                    lambda t: is_and),
+            AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0),
+        ),
+        accumulate=acc_fn,
+        combine=combine_fn,
+        extract=lambda accs, gm: (accs[0],
+                                  torch.logical_and(gm, accs[1] > 0)),
+        lane_types=lambda t: (BOOLEAN, BIGINT),
+    ))
+
+
+_make_bool("bool_and", True)
+_make_bool("bool_or", False)
+
+
+# -------------------------------------------------------- arbitrary / any
+
+def _arb_acc(accs, gids, values, mask):
+    """A scatter-max with the min identity, so a masked row never wins:
+    deterministic (each group's largest value; over a VARCHAR the code of
+    the last string in its sorted dictionary), and a group with no value
+    keeps the identity, which its count of 0 nulls at extract."""
+    ident = _minmax_identity_for(accs[0].dtype, False)
+    return (
+        scatter_minmax(accs[0], gids, _masked(values.to(accs[0].dtype),
+                                              mask, ident), False),
+        scatter_add(accs[1], gids, mask),
+    )
+
+
+def _arb_combine(accs, gids, lanes, mask):
+    ident = _minmax_identity_for(accs[0].dtype, False)
+    m = mask & (lanes[1] > 0)   # empty partials are inert
+    return (
+        scatter_minmax(accs[0], gids, _masked(lanes[0].to(accs[0].dtype),
+                                              m, ident), False),
+        scatter_add(accs[1], gids, _masked(lanes[1], mask, 0)),
+    )
+
+
+register_aggregate(AggregateFunction(
+    name="arbitrary",
+    resolve_type=lambda t: t,
+    lanes=(
+        AccLane("val", lambda t: t.dtype,
+                lambda t: _minmax_identity(t, False)),
+        AccLane("count", lambda t: np.dtype(np.int64), lambda t: 0),
+    ),
+    accumulate=_arb_acc,
+    combine=_arb_combine,
+    extract=lambda accs, gm: (accs[0], torch.logical_and(gm, accs[1] > 0)),
+    lane_types=lambda t: (t, BIGINT),
+))
+
+
+# ------------------------------------------------ moment/hash aggregates
+# (velox/functions/prestosql/aggregates: ChecksumAggregate.h,
+#  GeometricMeanAggregate, CentralMomentsAggregates.h)
+
+def _saturating_i64(x: torch.Tensor) -> torch.Tensor:
+    """A float to int64 as XLA converts it: toward zero, NaN to 0 and
+    out-of-range values (the infinities too) to the nearest int64 bound.
+    (torch's own cast gives int64 min for all of these on the CPU.)"""
+    big = float(2 ** 63)
+    inr = (x > -big) & (x < big)
+    t = torch.where(inr, x, torch.zeros_like(x)).to(torch.int64)
+    t = torch.where(x >= big, torch.full_like(t, 2 ** 63 - 1), t)
+    t = torch.where(x <= -big, torch.full_like(t, -2 ** 63), t)
+    return t
+
+
+def _checksum_acc(accs, gids, values, mask):
+    from velox_tpu_torch.ops.hash import hash_i64
+
+    (x,) = accs
+    v = (_saturating_i64(values * 1e6) if values.dtype.is_floating_point
+         else values.to(torch.int64))
+    h = _masked(hash_i64(v), mask, 0)
+    return (scatter_add(x, gids, h),)   # an order-independent wrapping sum
+
+
+register_aggregate(AggregateFunction(
+    name="checksum",
+    resolve_type=lambda t: BIGINT,
+    lanes=(AccLane("x", lambda t: np.dtype(np.int64), lambda t: 0),),
+    accumulate=_checksum_acc,
+    combine=_add_combine,
+    extract=lambda accs, gm: (accs[0], gm),
+    lane_types=lambda t: (BIGINT,),
+))
+
+
+def _geomean_acc(accs, gids, values, mask):
+    n, sl = accs
+    v = values.to(torch.float64)
+    ok = mask & (v > 0)
+    logs = torch.log(torch.clamp(v, min=1e-300))
+    return (scatter_add(n, gids, ok),
+            scatter_add(sl, gids, _masked(logs, ok, 0.0)))
+
+
+register_aggregate(AggregateFunction(
+    name="geometric_mean",
+    resolve_type=lambda t: DOUBLE,
+    lanes=(
+        AccLane("n", lambda t: np.dtype(np.int64), lambda t: 0),
+        AccLane("sumlog", lambda t: np.dtype(np.float64), lambda t: 0.0),
+    ),
+    accumulate=_geomean_acc,
+    combine=_add_combine,
+    extract=lambda accs, gm: (
+        torch.exp(accs[1] / torch.clamp(accs[0].to(torch.float64), min=1.0)),
+        torch.logical_and(gm, accs[0] > 0)),
+    lane_types=lambda t: (BIGINT, DOUBLE),
+))
+
+
+def _moments_lanes():
+    return (AccLane("n", lambda t: np.dtype(np.int64), lambda t: 0),) + tuple(
+        AccLane(f"s{k}", lambda t: np.dtype(np.float64), lambda t: 0.0)
+        for k in range(1, 5))
+
+
+def _moments_acc(accs, gids, values, mask):
+    n, s1, s2, s3, s4 = accs
+    v = _masked(values.to(torch.float64), mask, 0.0)
+    v2 = v * v
+    return (scatter_add(n, gids, mask), scatter_add(s1, gids, v),
+            scatter_add(s2, gids, v2), scatter_add(s3, gids, v2 * v),
+            scatter_add(s4, gids, v2 * v2))
+
+
+def _make_moments(name: str, kurt: bool) -> None:
+    # raw power sums and the JAX package's extract, formula for formula
+    def extract(accs, gm):
+        n, s1, s2, s3, s4 = accs
+        nf = torch.clamp(n.to(torch.float64), min=1.0)
+        m = s1 / nf
+        m2 = torch.clamp(s2 / nf - m * m, min=0.0)
+        # x ** 3 and x ** 4 multiply as XLA's integer_pow does
+        m3 = s3 / nf - 3 * m * s2 / nf + 2 * (m * (m * m))
+        m4 = (s4 / nf - 4 * m * s3 / nf + 6 * m * m * s2 / nf
+              - 3 * ((m * m) * (m * m)))
+        sd = torch.sqrt(torch.clamp(m2, min=1e-300))
+        nn = nf
+        if kurt:
+            # Presto kurtosis: the sample excess kurtosis
+            g2 = m4 / torch.clamp(m2 * m2, min=1e-300) - 3.0
+            out = ((nn - 1) / torch.clamp((nn - 2) * (nn - 3), min=1.0)
+                   * ((nn + 1) * g2 + 6))
+            ok = n >= 4
+        else:
+            # Presto skewness: the sample skewness
+            g1 = m3 / torch.clamp(sd * (sd * sd), min=1e-300)
+            out = (torch.sqrt(torch.clamp(nn * (nn - 1), min=0.0))
+                   / torch.clamp(nn - 2, min=1.0) * g1)
+            ok = n >= 3
+        return out, torch.logical_and(gm, ok)
+
+    register_aggregate(AggregateFunction(
+        name=name,
+        resolve_type=lambda t: DOUBLE,
+        lanes=_moments_lanes(),
+        accumulate=_moments_acc,
+        combine=_add_combine,
+        extract=extract,
+        lane_types=lambda t: (BIGINT, DOUBLE, DOUBLE, DOUBLE, DOUBLE),
+    ))
+
+
+_make_moments("skewness", False)
+_make_moments("kurtosis", True)
 
 
 def init_lane(lane: AccLane, arg_type, cap: int,

@@ -335,17 +335,18 @@ def result_arrays(plan, names) -> Arrays:
 def result_columns(plan, names) -> Dict[str, tuple]:
     """``result_arrays`` with each column's dictionary: (values, mask,
     dictionary or None). Every batch of a string column must share one
-    dictionary."""
+    dictionary. ``plan`` may also be a ``Task``, which this runs."""
     from velox_tpu_torch.exec.task import Task
     from velox_tpu_torch.plan.builder import PlanBuilder
     from velox_tpu_torch.utils.syncs import nonzero, to_numpy
 
     if isinstance(plan, PlanBuilder):
         plan = plan.build()
+    task = plan if isinstance(plan, Task) else Task(plan)
     vals = {n: [] for n in names}
     valid = {n: [] for n in names}
     dicts: Dict[str, object] = {}
-    for b in Task(plan).run():
+    for b in task.run():
         idx = nonzero(b.sel)
         for n in names:
             c = b.column(n)
