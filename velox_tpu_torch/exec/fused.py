@@ -131,37 +131,30 @@ class FusedScanAggOp(Operator):
         self._done = False
 
     def _compile(self, batch: Batch):
-        """(stages, aggregation step fn, mode) for this split's
-        dictionary signature."""
+        """The stages for this split's dictionary signature; the first
+        split decides the aggregation's mode."""
         sig = _dict_signature(batch)
         hit = self._step_cache.get(sig)
         if hit is not None:
             return hit
         stages, dicts = _stages(self.scan, self.transforms, batch)
         agg = self.agg
-        key_dicts = {k: dicts.get(k) for k in agg.keys}
-        mode = agg.decide_mode_dicts(key_dicts)
+        agg.decide_mode_dicts({k: dicts.get(k) for k in agg.keys})
         agg.note_key_dicts(dicts)
-        agg_fn = (agg.make_array_fn() if mode == "array"
-                  else agg.make_generic_fn())
-        hit = (stages, agg_fn, mode)
-        self._step_cache[sig] = hit
-        return hit
+        self._step_cache[sig] = stages
+        return stages
 
     def _pump(self) -> None:
+        """Every split through the stages into the aggregation's
+        per-batch step (a PARTIAL step's batches queue up in it, and it
+        may abandon, as unfused)."""
         agg = self.agg
         while self.scan._splits:
             b = self.scan._splits.popleft().project(
                 self.scan.node.all_columns)
-            stages, agg_fn, mode = self._compile(b)
+            stages = self._compile(b)
             env, sel = _run_stages(stages, eval_pairs(b), b.sel)
-            agg._device = b.device
-            if mode == "array":
-                st = agg.ensure_array_state(b.device)
-                st["accs"], st["seen"] = agg_fn(
-                    env, sel, st["accs"], st["seen"])
-            else:
-                agg.push_generic_entry(*agg_fn(env, sel))
+            agg.add_columns(env, sel)
         agg.no_more_input()
         self._done = True
 

@@ -3,8 +3,10 @@
 The port of the JAX package's ``exec/operators.py`` for the 22 TPC-H
 queries: ``TableScanOp`` (with pushed dynamic filters), ``FilterOp``, the
 scalar part of ``ProjectOp``, ``HashAggregationOp`` (kArray and the
-generic sort-based mode, SINGLE step, single-step ``count(distinct)``),
-``StreamingAggregationOp`` (with a fused HAVING), ``OrderByOp``,
+generic sort-based mode; SINGLE, PARTIAL and FINAL steps, adaptive
+partial aggregation, multi-argument aggregates and matrix lanes,
+single-step ``count(distinct)``), ``StreamingAggregationOp`` (SINGLE and
+FINAL, with a fused HAVING), ``OrderByOp``,
 ``TopNOp``, ``LimitOp``, the hash and merge joins (``JoinKeyCodec``,
 ``JoinBridge``, ``HashBuildOp``, ``HashProbeOp`` for all eight join
 types with residual filters, ``MergeJoinBuildOp``,
@@ -21,6 +23,7 @@ every such read.
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,7 +35,9 @@ from velox_tpu_torch.types.types import TypeKind, row_type
 from velox_tpu_torch.vector.batch import Batch, concat_batches, round_capacity
 from velox_tpu_torch.vector.column import Column, Dictionary
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
-from velox_tpu_torch.functions.aggregates import init_lane, lookup_aggregate
+from velox_tpu_torch.functions.aggregates import (
+    _masked, init_lane, lookup_aggregate,
+)
 from velox_tpu_torch.ops.groupby import (
     SCAN_COMBINE, group_ids_array, group_ids_sorted, segment_scan,
 )
@@ -203,62 +208,129 @@ class HashAggregationOp(Operator):
       of the grouped-sum kernel B2 for all-additive integer aggregates;
     * generic: per batch, a sort-based batch-local grouping
       (``group_ids_sorted``) and partial accumulators with one slot per
-      row of the batch's capacity (one slot when keyless); at output the
-      partials of every batch are concatenated, grouped again and
+      row of the batch's capacity (one slot when keyless; one per group,
+      at one host sync, when an aggregate has a matrix lane); at output
+      the partials of every batch are concatenated, grouped again and
       combined. Groups come out in key order (NULLS LAST). A node with a
       ``count(distinct x)`` always takes this mode.
+
+    Steps (velox AggregationNode::Step): SINGLE; PARTIAL emits the keys
+    and each aggregate's lanes as columns ``name$lane`` (a matrix lane as
+    ``name$lane@slot``), per batch in the generic mode and once, for all
+    G groups, when a kArray input ends (the reference emits nothing
+    there); FINAL reads lane columns and combines them (masks applied to
+    raw input only, so FINAL drops them). A generic PARTIAL that does not
+    reduce is abandoned (``_maybe_abandon``): every later row goes out
+    as its own group.
     """
 
     blocking = True
 
     def __init__(self, node: AggregationNode):
         super().__init__(node)
-        if node.step != AggStep.SINGLE:
-            raise NotImplementedError(
-                f"{node.step} aggregation steps are not ported yet")
         self.step = node.step
         self.keys = list(node.keys)
         self.specs = list(node.aggregates)
+        if self.step == AggStep.FINAL:
+            # masks apply to raw input only (velox addRawInput against
+            # addIntermediateResults): the PARTIAL step consumed them
+            self.specs = [dataclasses.replace(s, mask=None)
+                          for s in self.specs]
         self.agg_names = list(node.agg_names)
         self.fns = [lookup_aggregate(s.fn) for s in self.specs]
         self.has_distinct = any(s.distinct for s in self.specs)
-        if any(isinstance(s.arg, tuple) for s in self.specs):
+        if self.has_distinct and self.step != AggStep.SINGLE:
             raise NotImplementedError(
-                "multi-argument aggregates are not ported")
+                "distinct aggregates only in single-step aggregation")
+        if self.step != AggStep.SINGLE and any(
+                lane.width > 256 for fn in self.fns for lane in fn.lanes):
+            raise NotImplementedError(
+                "very wide matrix lanes (approx_distinct HLL registers) "
+                "are single-step only")
+        if any(s.distinct and isinstance(s.arg, tuple) for s in self.specs):
+            raise NotImplementedError(
+                "DISTINCT over multi-argument aggregates")
         in_schema = node.source.output_type
-        self.arg_types = [None if s.arg is None
-                          else in_schema.find_child(s.arg)
-                          for s in self.specs]
+        self.arg_types: list = []
+        #: FINAL: each aggregate's lane columns, one list per lane
+        self.lane_names: List[List[List[str]]] = []
+        for s, name, fn in zip(self.specs, self.agg_names, self.fns):
+            if self.step == AggStep.FINAL:
+                groups = [[f"{name}${i}"] if lane.width == 1
+                          else [f"{name}${i}@{j}" for j in range(lane.width)]
+                          for i, lane in enumerate(fn.lanes)]
+                self.arg_types.append(fn.resolve_input_type(tuple(
+                    in_schema.find_child(g[0]) for g in groups)))
+                self.lane_names.append(groups)
+                continue
+            fields = self._arg_fields(s)
+            types = [in_schema.find_child(a) for a in fields]
+            self.arg_types.append(None if not types else types[0]
+                                  if not isinstance(s.arg, tuple)
+                                  else tuple(types))
+            self.lane_names.append([])
+            if self.step == AggStep.PARTIAL and any(
+                    lt.is_string for lt in fn.lane_types(
+                        self.arg_types[-1])):
+                raise NotImplementedError(
+                    "two-step aggregation of VARCHAR values: lane "
+                    "columns carry no dictionary")
         self._needed = list(dict.fromkeys(
-            self.keys
-            + [s.arg for s in self.specs if s.arg is not None]
-            + [s.mask for s in self.specs if s.mask is not None]))
-        self._entries: List[dict] = []  # keyless partials (generic mode)
+            self.keys + [a for s in self.specs for a in self._arg_fields(s)]
+            + [s.mask for s in self.specs if s.mask is not None]
+            + [c for groups in self.lane_names for g in groups for c in g]))
+        self._entries: List[dict] = []  # generic partials to merge
+        self._outputs: collections.deque = collections.deque()  # PARTIAL
         self._array_state: Optional[dict] = None
         self._mode: Optional[str] = None
-        #: the dictionary of each string key and string aggregate
-        #: argument: output keys decode through it, and min/max of a
-        #: string are codes into it (sorted, so codes are ranks)
+        #: the dictionary of each string key and string aggregate value:
+        #: output keys decode through it, and min/max (min_by's payload)
+        #: of a string are codes into it (sorted, so codes are ranks)
         self._key_dicts: Dict[str, Dictionary] = {}
-        self._dict_cols = list(dict.fromkeys(
-            self.keys + [s.arg for s, t in zip(self.specs, self.arg_types)
-                         if t is not None and t.is_string]))
+        self._dict_cols = list(dict.fromkeys(self.keys + [
+            self._arg_fields(s)[0] for s, t in zip(self.specs, self.arg_types)
+            if self.step != AggStep.FINAL and t is not None
+            and (t[0] if isinstance(t, tuple) else t).is_string]))
         self._emitted = False
         self._device: Optional[torch.device] = None
+        #: whether some aggregate keeps a (groups, width) matrix lane
+        self._matrix = any(lane.width > 1 for fn in self.fns
+                           for lane in fn.lanes)
+        #: adaptive partial aggregation (velox
+        #: abandonPartialAggregationEarly)
+        self.abandoned = False
+        self._abandon_checked = False
+        self._rows_seen_cap = 0
+        #: runtime statistics (``abandoned_partial_agg``)
+        self.runtime: Dict[str, float] = {}
 
     # ----------------------------------------------------------- helpers
+    def _arg_fields(self, spec) -> List[str]:
+        """The input columns an aggregate reads (none in a FINAL step,
+        which reads lane columns)."""
+        if spec.arg is None or self.step == AggStep.FINAL:
+            return []
+        return list(spec.arg) if isinstance(spec.arg, tuple) else [spec.arg]
+
     def _agg_inputs(self, cols, sel):
-        """Per-aggregate (values, mask) for accumulate."""
+        """Per aggregate (values, mask) for accumulate, or (lanes, mask)
+        for a FINAL step's combine. A multi-argument aggregate's values
+        are a tuple of (values, valid) pairs, and its NULLs are its own
+        business."""
         out = []
-        for spec in self.specs:
+        for spec, lanes in zip(self.specs, self.lane_names):
             mask = sel
             if spec.mask is not None:
                 mvals, mvalid = cols[spec.mask]
                 mask = torch.logical_and(mask, mvals)
                 if mvalid is not None:
                     mask = torch.logical_and(mask, mvalid)
-            if spec.arg is None:
+            if self.step == AggStep.FINAL:
+                out.append((_lane_arrays(cols, lanes), mask))
+            elif spec.arg is None:
                 out.append((None, mask))
+            elif isinstance(spec.arg, tuple):
+                out.append((tuple(cols[a] for a in spec.arg), mask))
             else:
                 avals, avalid = cols[spec.arg]
                 if avalid is not None:
@@ -290,17 +362,31 @@ class HashAggregationOp(Operator):
 
     # ------------------------------------------------------------- input
     def add_input(self, batch: Batch) -> None:
-        self._device = batch.device
-        mode = self.decide_mode_dicts({
+        self.decide_mode_dicts({
             k: batch.column(k).dictionary for k in self.keys})
         self.note_key_dicts(batch)
-        cols = _cols_of(batch, self._needed)
-        if mode == "array":
-            st = self.ensure_array_state(batch.device)
+        self.add_columns(_cols_of(batch, self._needed), batch.sel)
+
+    def add_columns(self, cols, sel) -> None:
+        """One batch's columns (``(values, valid)`` by name) once the mode
+        is decided: the per-batch step of either mode and step."""
+        self._device = sel.device
+        if self._mode == "array":
+            st = self.ensure_array_state(sel.device)
             st["accs"], st["seen"] = self.make_array_fn()(
-                cols, batch.sel, st["accs"], st["seen"])
+                cols, sel, st["accs"], st["seen"])
+        elif self.step == AggStep.FINAL:
+            # buffer the partial groups as they are; merge at output
+            self.push_generic_entry(
+                [cols[k] for k in self.keys],
+                [_lane_arrays(cols, lanes) for lanes in self.lane_names],
+                sel, [None] * len(self.specs))
+        elif self.abandoned:
+            self._add_passthrough(cols, sel)
         else:
-            self.push_generic_entry(*self.make_generic_fn()(cols, batch.sel))
+            gkeys, lanes, group_sel, dreps = self.make_generic_fn()(cols, sel)
+            self.push_generic_entry(gkeys, lanes, group_sel, dreps)
+            self._maybe_abandon(sel, group_sel)
 
     def note_key_dicts(self, batch_or_dicts) -> None:
         """Remember the first dictionary seen for each string key and
@@ -315,11 +401,12 @@ class HashAggregationOp(Operator):
 
     def _agg_column(self, name: str, vals, valid) -> Column:
         """An aggregate's output column; a string result (min/max of a
-        string) keeps its argument's dictionary."""
+        string, min_by's string payload) keeps its value's dictionary."""
         t = self.output_type.find_child(name)
         if not t.is_string:
             return Column(t, vals, valid)
-        arg = self.specs[self.agg_names.index(name)].arg
+        spec = self.specs[self.agg_names.index(name)]
+        arg = (self._arg_fields(spec) or [None])[0]
         # a group with no value holds the identity: code -1 decodes it
         vals = torch.where(valid, vals, torch.full_like(vals, -1))
         return Column(t, vals, valid, _key_dict_for(self._key_dicts, t, arg))
@@ -335,10 +422,12 @@ class HashAggregationOp(Operator):
         return self._array_state
 
     def make_array_fn(self):
-        """Per-batch kArray step: (cols, sel, accs, seen) -> (accs, seen)."""
+        """Per-batch kArray step: (cols, sel, accs, seen) -> (accs, seen);
+        a FINAL step combines lanes and never takes B2."""
         radices = self._radices
         keys = self.keys
         G = self._num_groups
+        is_final = self.step == AggStep.FINAL
 
         def fn(cols, sel, accs_in, seen):
             vids = []
@@ -353,14 +442,17 @@ class HashAggregationOp(Operator):
             gids = group_ids_array(vids, radices, sel, G)
             inputs = self._agg_inputs(cols, sel)
 
-            multi = self._try_multi_sum(gids, sel, inputs, accs_in, seen, G)
-            if multi is not None:
-                return multi
+            if not is_final:
+                multi = self._try_multi_sum(gids, sel, inputs, accs_in,
+                                            seen, G)
+                if multi is not None:
+                    return multi
 
             seen_ext = torch.cat([seen, seen.new_zeros(1)])
             seen_ext.index_fill_(0, gids.long(), True)
             seen = seen_ext[:G]
-            accs_out = [f.accumulate(accs, gids, vals, mask)
+            accs_out = [(f.combine if is_final else f.accumulate)(
+                            accs, gids, vals, mask)
                         for f, accs, (vals, mask)
                         in zip(self.fns, accs_in, inputs)]
             return accs_out, seen
@@ -428,9 +520,11 @@ class HashAggregationOp(Operator):
         """Per-batch generic step: (cols, sel) -> (group keys, partial
         lanes, group selection, distinct representatives). Keyless: one
         slot and no sort; keyed: ``group_ids_sorted`` and one slot per
-        row of the batch's capacity. A distinct aggregate accumulates
-        nothing here: its batch's distinct (keys, arg) rows are kept for
-        the merge (velox/exec/DistinctAggregations.h)."""
+        row of the batch's capacity, or, when an aggregate keeps a matrix
+        lane (``capacity x width`` would be gigabytes), one per group,
+        which costs a host sync. A distinct aggregate accumulates nothing
+        here: its batch's distinct (keys, arg) rows are kept for the
+        merge (velox/exec/DistinctAggregations.h)."""
         keys = self.keys
 
         def take_pairs(pairs, rows):
@@ -449,8 +543,12 @@ class HashAggregationOp(Operator):
                 group_sel = torch.any(sel)[None]
                 acc_cap = 1
             else:
-                gids, group_rows, group_sel, _ = group_ids_sorted(pairs, sel)
+                gids, group_rows, group_sel, ng = group_ids_sorted(pairs, sel)
                 acc_cap = sel.shape[0]
+                if self._matrix:
+                    acc_cap = max(syncs.to_int(ng), 1)
+                    group_rows = group_rows[:acc_cap]
+                    group_sel = group_sel[:acc_cap]
             lanes_out = [None if spec.distinct
                          else f.accumulate(accs, gids, vals, mask)
                          for f, spec, accs, (vals, mask) in zip(
@@ -472,22 +570,81 @@ class HashAggregationOp(Operator):
         return fn
 
     def push_generic_entry(self, gkeys, lanes_out, group_sel, dreps) -> None:
-        self._entries.append({"keys": gkeys, "lanes": lanes_out,
-                              "sel": group_sel, "distinct": dreps})
+        entry = {"keys": gkeys, "lanes": lanes_out, "sel": group_sel,
+                 "distinct": dreps}
+        if self.step == AggStep.PARTIAL:
+            self._outputs.append(self._partial_batch(entry))
+        else:
+            self._entries.append(entry)
+
+    # ---------------------------------------- adaptive partial aggregation
+    def _maybe_abandon(self, sel, group_sel) -> None:
+        """velox abandonPartialAggregationEarly: once the PARTIAL step has
+        seen ``abandon_partial_agg_min_rows`` rows (batch capacities),
+        ONE host sync reads this batch's rows and groups; at a ratio of
+        at least ``abandon_partial_agg_min_pct`` the step stops grouping
+        and forwards every row as its own group for the FINAL step."""
+        from velox_tpu_torch.utils.config import config
+
+        if (self.step != AggStep.PARTIAL or self.abandoned
+                or self._abandon_checked or not self.keys):
+            return
+        self._rows_seen_cap += sel.shape[0]
+        if self._rows_seen_cap < config.abandon_partial_agg_min_rows:
+            return
+        self._abandon_checked = True
+        rows, groups = syncs.to_numpy(torch.stack(
+            [sel.sum(), group_sel.sum()])).tolist()
+        if rows > 0 and groups / rows >= config.abandon_partial_agg_min_pct:
+            self.abandoned = True
+            self.runtime["abandoned_partial_agg"] = 1.0
+
+    def _add_passthrough(self, cols, sel) -> None:
+        """An abandoned PARTIAL step: row i is group i (no sort), its
+        lanes one row's accumulation."""
+        gids = torch.arange(sel.shape[0], device=sel.device)
+        lanes = [f.accumulate(accs, gids, vals, mask)
+                 for f, accs, (vals, mask) in zip(
+                     self.fns, self._init_accs(sel.shape[0], sel.device),
+                     self._agg_inputs(cols, sel))]
+        self.push_generic_entry([cols[k] for k in self.keys], lanes, sel,
+                                [None] * len(self.specs))
 
     # ------------------------------------------------------------ output
+    def _partial_batch(self, entry) -> Batch:
+        """A PARTIAL step's output: the group keys and every lane."""
+        cols = {}
+        for k, (v, va) in zip(self.keys, entry["keys"]):
+            kt = self.output_type.find_child(k)
+            cols[k] = Column(kt, v, va, _key_dict_for(self._key_dicts, kt, k))
+        for name, fn, at, lanes in zip(self.agg_names, self.fns,
+                                       self.arg_types, entry["lanes"]):
+            for li, (lane, lt) in enumerate(zip(lanes, fn.lane_types(at))):
+                if lane.ndim == 1:
+                    cols[f"{name}${li}"] = Column(lt, lane)
+                else:
+                    for j in range(lane.shape[1]):
+                        cols[f"{name}${li}@{j}"] = Column(lt, lane[:, j])
+        return Batch(cols, entry["sel"])
+
     def get_output(self) -> Optional[Batch]:
+        if self._outputs:
+            return self._outputs.popleft()
         if not self.no_more_input_seen or self._emitted:
             return None
         self._emitted = True
         if self._mode == "array":
             return self._finish_array()
+        if self.step == AggStep.PARTIAL:
+            return None    # every batch's partials went out with it
         if not self._entries:
             return self._empty_result()
         entries, self._entries = self._entries, []
         return self._merge_entries(entries)
 
     def _finish_array(self) -> Batch:
+        """kArray output: every group slot, live where a row was seen;
+        the extracted results, or a PARTIAL step's lanes."""
         st = self._array_state
         if st is None:
             raise RuntimeError("no input reached array-mode aggregation")
@@ -499,24 +656,31 @@ class HashAggregationOp(Operator):
         def padded(a, fill=0):
             if pad == 0:
                 return a
-            return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype,
-                                            device=device)])
+            return torch.cat([a, torch.full((pad,) + a.shape[1:], fill,
+                                            dtype=a.dtype, device=device)])
 
         seen = padded(st["seen"], False)
-        cols = {}
+        gkeys = []
         stride = 1
         gid_idx = np.arange(G)
-        for k, radix in zip(self.keys, self._radices):
+        for radix in self._radices:
             codes = ((gid_idx // stride) % radix).astype(np.int32)
             valid_np = codes != radix - 1
             codes = np.where(valid_np, codes, -1).astype(np.int32)
             stride *= radix
-            v = padded(torch.from_numpy(codes).to(device), -1)
-            va = padded(torch.from_numpy(valid_np).to(device), False)
+            gkeys.append((padded(torch.from_numpy(codes).to(device), -1),
+                          padded(torch.from_numpy(valid_np).to(device),
+                                 False)))
+        accs = [tuple(padded(a) for a in lanes) for lanes in st["accs"]]
+        if self.step == AggStep.PARTIAL:
+            return self._partial_batch({"keys": gkeys, "lanes": accs,
+                                        "sel": seen})
+        cols = {}
+        for k, (v, va) in zip(self.keys, gkeys):
             kt = self.output_type.find_child(k)
             cols[k] = Column(kt, v, va, _key_dict_for(self._key_dicts, kt, k))
-        for name, fn, accs in zip(self.agg_names, self.fns, st["accs"]):
-            vals, valid = fn.extract(tuple(padded(a) for a in accs), seen)
+        for name, fn, lanes in zip(self.agg_names, self.fns, accs):
+            vals, valid = fn.extract(lanes, seen)
             cols[name] = self._agg_column(name, vals, valid)
         return Batch(cols, seen)
 
@@ -555,8 +719,9 @@ class HashAggregationOp(Operator):
 
         def region(parts, lo, hi):
             """``parts`` placed at [lo, hi) of a cap-long lane."""
-            return torch.cat([parts[0].new_zeros(lo)] + list(parts)
-                             + [parts[0].new_zeros(cap - hi)])
+            trail = parts[0].shape[1:]
+            return torch.cat([parts[0].new_zeros((lo,) + trail)] + list(parts)
+                             + [parts[0].new_zeros((cap - hi,) + trail)])
 
         keys = []
         for ki in range(len(self.keys)):
@@ -619,7 +784,17 @@ class HashAggregationOp(Operator):
         return Batch(cols, sel)
 
     def is_finished(self) -> bool:
-        return self.no_more_input_seen and self._emitted
+        return (self.no_more_input_seen and self._emitted
+                and not self._outputs)
+
+
+def _lane_arrays(cols, lane_groups) -> tuple:
+    """A FINAL step's lanes read back from their columns: one column a
+    lane, a matrix lane's ``name$lane@slot`` columns stacked to
+    (rows, width)."""
+    return tuple(cols[g[0]][0] if len(g) == 1
+                 else torch.stack([cols[n][0] for n in g], dim=1)
+                 for g in lane_groups)
 
 
 # ------------------------------------------------------ streaming agg
@@ -664,6 +839,9 @@ class StreamingAggregationOp(HashAggregationOp):
 
     def __init__(self, node):
         super().__init__(node)
+        if self.step not in (AggStep.SINGLE, AggStep.FINAL):
+            raise NotImplementedError(
+                "streaming aggregation emits final results (SINGLE/FINAL)")
         if not self.keys:
             raise ValueError("keyless aggregation has no streams to close")
         if self.has_distinct:
@@ -724,16 +902,19 @@ class StreamingAggregationOp(HashAggregationOp):
         # group totals: each lane's segmented scan at the group's last row
         inputs = self._agg_inputs(pcols, torch.ones(
             n, dtype=torch.bool, device=device))
+        is_final = self.step == AggStep.FINAL
         gids = None
         totals = []
         for ai, (fn, at, (vals, mask)) in enumerate(zip(
                 self.fns, self.arg_types, inputs)):
-            if not fn.scannable:
+            scan = (all(lane.scan_op for lane in fn.lanes) if is_final
+                    else fn.scannable)
+            if not scan:
                 # no scan lanes: scatter into one slot a group, then
                 # combine the carried group into slot 0
                 if gids is None:
                     gids = torch.cumsum(head, 0) - 1
-                accs = fn.accumulate(
+                accs = (fn.combine if is_final else fn.accumulate)(
                     tuple(init_lane(lane, at, ng, device)
                           for lane in fn.lanes), gids, vals, mask)
                 if carry is not None:
@@ -741,9 +922,13 @@ class StreamingAggregationOp(HashAggregationOp):
                                       merge[None])
                 totals.append(list(accs))
                 continue
+            # a FINAL step's lanes are their own contributions
+            contribs = (tuple(_masked(lv.to(torch_dtype(lane.dtype_of(at))),
+                                      mask, lane.init_of(at))
+                              for lane, lv in zip(fn.lanes, vals))
+                        if is_final else fn.lane_contribs(vals, mask, at))
             lanes = []
-            for li, (lane, c) in enumerate(zip(
-                    fn.lanes, fn.lane_contribs(vals, mask, at))):
+            for li, (lane, c) in enumerate(zip(fn.lanes, contribs)):
                 t = segment_scan(c, head, lane.scan_op).index_select(
                     0, last_rows)
                 if carry is not None:
@@ -756,40 +941,46 @@ class StreamingAggregationOp(HashAggregationOp):
                 lanes.append(t)
             totals.append(lanes)
 
-        # ng output slots: slot 0 is the carry, live only when it did not
-        # merge into group 0; slots 1 .. ng-1 are groups 0 .. ng-2
+        # the reference's output slots: the carry, when it did not merge
+        # into group 0 (``alone``), then the batch's closed groups
+        # 0 .. ng-2 (the noisy aggregates draw by slot)
         cap = round_capacity(ng)
         pad = cap - ng
-        gsel = torch.arange(cap, device=device) < ng
-        gsel[0] = False if carry is None else ~merge
+        alone = None if carry is None else ~merge
+
+        def place(first, body):
+            """``[first, body, 0...]`` if alone else ``[body, 0...]``,
+            ``cap`` rows."""
+            trail = body.shape[1:]
+            shifted = torch.cat([body, body.new_zeros((pad + 1,) + trail)])
+            if alone is None:
+                return shifted
+            return torch.where(alone, torch.cat(
+                [first.to(body.dtype), body,
+                 body.new_zeros((pad,) + trail)]), shifted)
+
+        r = torch.arange(cap, device=device)
+        gsel = (r < ng - 1 if alone is None
+                else r < ng - 1 + alone.to(torch.int64))
         key_rows = starts[:ng - 1]
         out: Dict[str, Column] = {}
         for k, (v, va), ci in zip(self.keys, kp, range(len(self.keys))):
             kt = self.output_type.find_child(k)
-            first = (carry[0][ci][0] if carry is not None
-                     else v[:1])
-            kv = torch.cat([first, v.index_select(0, key_rows),
-                            v.new_zeros(pad)])
+            ck = carry[0][ci] if carry is not None else (v[:1], None)
+            kv = place(ck[0], v.index_select(0, key_rows))
             kva = None
-            if va is not None or (carry is not None
-                                  and carry[0][ci][1] is not None):
-                cva = (carry[0][ci][1] if carry is not None
-                       and carry[0][ci][1] is not None
-                       else torch.ones(1, dtype=torch.bool, device=device))
-                gva = (va.index_select(0, key_rows) if va is not None
-                       else torch.ones(ng - 1, dtype=torch.bool,
-                                       device=device))
-                kva = torch.cat([cva, gva, torch.zeros(
-                    pad, dtype=torch.bool, device=device)])
+            if va is not None or ck[1] is not None:
+                kva = place(
+                    ck[1] if ck[1] is not None
+                    else torch.ones(1, dtype=torch.bool, device=device),
+                    va.index_select(0, key_rows) if va is not None
+                    else torch.ones(ng - 1, dtype=torch.bool, device=device))
             out[k] = Column(kt, kv, kva,
                             _key_dict_for(self._key_dicts, kt, k))
         for ai, (name, fn, at) in enumerate(zip(
                 self.agg_names, self.fns, self.arg_types)):
-            accs = []
-            for li, t in enumerate(totals[ai]):
-                c0 = (carry[1][ai][li].to(t.dtype) if carry is not None
-                      else t[:1])
-                accs.append(torch.cat([c0, t[:ng - 1], t.new_zeros(pad)]))
+            accs = [place(carry[1][ai][li] if carry is not None else t[:1],
+                          t[:ng - 1]) for li, t in enumerate(totals[ai])]
             vals, valid = fn.extract(tuple(accs), gsel)
             out[name] = self._agg_column(name, vals, valid)
         emitted = self._emit(out, gsel)
@@ -824,7 +1015,8 @@ class StreamingAggregationOp(HashAggregationOp):
                     [cva, cva.new_zeros(cap - 1)]),
                 _key_dict_for(self._key_dicts, kt, k))
         for name, fn, lanes in zip(self.agg_names, self.fns, cl):
-            full = tuple(torch.cat([lv, lv.new_zeros(cap - 1)])
+            full = tuple(torch.cat([lv, lv.new_zeros((cap - 1,)
+                                                     + lv.shape[1:])])
                          for lv in lanes)
             vals, valid = fn.extract(full, sel0)
             cols[name] = self._agg_column(name, vals, valid)

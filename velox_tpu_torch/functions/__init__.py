@@ -7,3 +7,5 @@ import velox_tpu_torch.functions.scalar  # noqa: F401  (registers)
 from velox_tpu_torch.functions.aggregates import (  # noqa: F401
     AggregateFunction, aggregate_registry, lookup_aggregate,
 )
+import velox_tpu_torch.functions.aggregates_multi  # noqa: F401,E402
+import velox_tpu_torch.functions.aggregates_noisy  # noqa: F401,E402

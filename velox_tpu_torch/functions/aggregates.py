@@ -5,9 +5,17 @@ single-argument aggregates (``sum``, ``count``, ``count_if``, ``avg``,
 ``min``, ``max``, the variance family, ``bool_and``/``bool_or``,
 ``arbitrary``, ``checksum``, ``geometric_mean``, ``skewness``,
 ``kurtosis``). An accumulator is a struct of tensors, one
-per lane, of shape ``(num_groups,)``; accumulation is a scatter-add of
+per lane, of shape ``(num_groups,)`` (``(num_groups, width)`` for a
+matrix lane); accumulation is a scatter-add of
 the whole batch into them. Group ids outside ``[0, num_groups)`` (the
 sentinel of inactive rows) are dropped.
+
+Each function is also its own companion: a PARTIAL step emits its lanes
+as columns and a FINAL step reads them back through ``combine``
+(``final_type`` and ``input_type_from_lanes`` type the FINAL step from
+the lane columns alone). The multi-argument, bitwise and sketch
+aggregates live in ``aggregates_multi.py``, the noisy ones in
+``aggregates_noisy.py``.
 
 Under ``narrow_lanes`` the sums and counts of 32-bit integer lanes go
 through ``_narrow_segment_sum``/``_narrow_segment_count``: for
@@ -32,11 +40,14 @@ from velox_tpu_torch.types.types import DecimalType, TypeKind
 
 @dataclass(frozen=True)
 class AccLane:
-    """One accumulator lane: a device tensor with an identity value."""
+    """One accumulator lane: a device tensor with an identity value.
+    ``width > 1`` makes it a ``(groups, width)`` matrix (HLL registers,
+    per-bit counts), emitted by a PARTIAL step as ``width`` columns."""
 
     name: str
     dtype_of: Callable[[Optional[DataType]], np.dtype]
     init_of: Callable[[Optional[DataType]], object]
+    width: int = 1
     #: the associative reduction this lane is ("add", "min", "max"): the streaming
     #: aggregation's segmented-scan path needs one on every lane
     scan_op: Optional[str] = None
@@ -57,6 +68,13 @@ class AggregateFunction:
     extract: Callable
     #: intermediate (partial) output types, parallel to lanes
     lane_types: Callable[[Optional[DataType]], Tuple[DataType, ...]]
+    #: the result type from the lane types (a FINAL step, where the raw
+    #: input type is unknown); default: the first lane's type
+    final_type: Optional[Callable] = None
+    #: the raw input type (a tuple for a multi-argument aggregate) from
+    #: the lane types, to size a FINAL step's accumulators; default: the
+    #: first lane's type
+    input_type_from_lanes: Optional[Callable] = None
     #: per-row lane contributions for the streaming aggregation:
     #: (values, mask, arg_type) -> one tensor per lane, in the lane's
     #: dtype, masked rows at the lane identity
@@ -66,6 +84,16 @@ class AggregateFunction:
     def scannable(self) -> bool:
         return (self.lane_contribs is not None
                 and all(lane.scan_op is not None for lane in self.lanes))
+
+    def resolve_final_type(self, lane_types: Tuple[DataType, ...]):
+        if self.final_type is not None:
+            return self.final_type(lane_types)
+        return lane_types[0]
+
+    def resolve_input_type(self, lane_types: Tuple[DataType, ...]):
+        if self.input_type_from_lanes is not None:
+            return self.input_type_from_lanes(lane_types)
+        return lane_types[0]
 
 
 aggregate_registry: Dict[str, AggregateFunction] = {}
@@ -92,14 +120,41 @@ def _masked(values: torch.Tensor, mask: torch.Tensor, identity):
                                    device=values.device) + identity)
 
 
+#: into at most this many groups (keyless, kArray) every atomic of a
+#: scatter lands on a few addresses; one masked reduction a group, each
+#: a read of the rows, takes its place
+_FEW_GROUPS = 32
+#: ... from this many rows; below it the launches a group cost more
+_FEW_GROUPS_MIN_ROWS = 1 << 16
+
+
+def _per_group(acc: torch.Tensor, gids: torch.Tensor, values: torch.Tensor,
+               reduce, identity):
+    """``reduce`` (``torch.sum``, ``amin``, ``amax``, ``prod``) of each
+    group's rows, or None where a scatter should do: a select, so a NaN
+    or inf stays in its own group (a product with a 0/1 group matrix
+    would spread it to every group). Out-of-range gids drop."""
+    G = acc.shape[0]
+    if not 0 < G <= _FEW_GROUPS or gids.shape[0] < _FEW_GROUPS_MIN_ROWS:
+        return None
+    v = values.to(acc.dtype)
+    ident = torch.full((), identity, dtype=acc.dtype, device=acc.device)
+    sel = gids if v.dim() == 1 else gids[:, None]
+    return torch.stack([reduce(torch.where(sel == g, v, ident), dim=0)
+                        for g in range(G)]).to(acc.dtype)
+
+
 def scatter_add(acc: torch.Tensor, gids: torch.Tensor,
                 values: torch.Tensor) -> torch.Tensor:
     """``acc.at[gids].add(values, mode="drop")``: out-of-range gids drop
-    into a spare bin."""
+    into a spare bin. A matrix lane adds whole rows."""
+    per = _per_group(acc, gids, values, torch.sum, 0)
+    if per is not None:
+        return acc + per
     G = acc.shape[0]
     g = torch.where((gids >= 0) & (gids < G), gids,
                     torch.full_like(gids, G)).long()
-    ext = torch.cat([acc, acc.new_zeros(1)])
+    ext = torch.cat([acc, acc.new_zeros((1,) + acc.shape[1:])])
     ext.index_add_(0, g, values.to(acc.dtype))
     return ext[:G]
 
@@ -281,13 +336,31 @@ def scatter_minmax(acc: torch.Tensor, gids: torch.Tensor,
     if acc.dtype == torch.bool:
         return scatter_minmax(acc.to(torch.uint8), gids,
                               values.to(torch.uint8), is_min).to(torch.bool)
+    ident = _minmax_identity_for(acc.dtype, is_min)
+    per = _per_group(acc, gids, values, torch.amin if is_min else torch.amax,
+                     ident)
+    if per is not None:
+        return torch.minimum(acc, per) if is_min else torch.maximum(acc, per)
     G = acc.shape[0]
     g = torch.where((gids >= 0) & (gids < G), gids,
                     torch.full_like(gids, G)).long()
-    ext = torch.cat([acc, acc.new_full(
-        (1,), _minmax_identity_for(acc.dtype, is_min))])
+    ext = torch.cat([acc, acc.new_full((1,), ident)])
     ext.scatter_reduce_(0, g, values.to(acc.dtype),
                         "amin" if is_min else "amax", include_self=True)
+    return ext[:G]
+
+
+def scatter_prod(acc: torch.Tensor, gids: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    """``acc.at[gids].multiply(values, mode="drop")``."""
+    per = _per_group(acc, gids, values, torch.prod, 1)
+    if per is not None:
+        return acc * per
+    G = acc.shape[0]
+    g = torch.where((gids >= 0) & (gids < G), gids,
+                    torch.full_like(gids, G)).long()
+    ext = torch.cat([acc, acc.new_ones(1)])
+    ext.scatter_reduce_(0, g, values.to(acc.dtype), "prod", include_self=True)
     return ext[:G]
 
 
@@ -431,6 +504,7 @@ def _make_var(name: str, sample: bool, stddev: bool) -> None:
         combine=_add_combine,
         extract=extract,
         lane_types=lambda t: (BIGINT, DOUBLE, DOUBLE),
+        final_type=lambda lanes: DOUBLE,
         lane_contribs=_var_contribs,
     ))
 
@@ -576,6 +650,7 @@ register_aggregate(AggregateFunction(
         torch.exp(accs[1] / torch.clamp(accs[0].to(torch.float64), min=1.0)),
         torch.logical_and(gm, accs[0] > 0)),
     lane_types=lambda t: (BIGINT, DOUBLE),
+    final_type=lambda lanes: DOUBLE,
 ))
 
 
@@ -629,6 +704,7 @@ def _make_moments(name: str, kurt: bool) -> None:
         combine=_add_combine,
         extract=extract,
         lane_types=lambda t: (BIGINT, DOUBLE, DOUBLE, DOUBLE, DOUBLE),
+        final_type=lambda lanes: DOUBLE,
     ))
 
 
@@ -638,7 +714,9 @@ _make_moments("kurtosis", True)
 
 def init_lane(lane: AccLane, arg_type, cap: int,
               device: torch.device) -> torch.Tensor:
-    """A fresh ``(cap,)`` accumulator lane at its identity."""
-    return torch.full((cap,), lane.init_of(arg_type),
+    """A fresh ``(cap,)`` accumulator lane (``(cap, width)`` for a matrix
+    lane) at its identity."""
+    shape = (cap,) if lane.width == 1 else (cap, lane.width)
+    return torch.full(shape, lane.init_of(arg_type),
                       dtype=torch_dtype(lane.dtype_of(arg_type)),
                       device=device)

@@ -425,6 +425,10 @@ def tpch_columns(sf: float, seed: int,
         l_odate = np.repeat(odate, nlines)
         supp_i = rng2.integers(0, 4, nl).astype(np.int64)
         lineitem["l_partkey"] = extra["l_partkey"]
+        # each order's lines numbered from 1 (no draw: the other columns
+        # keep their values)
+        lineitem["l_linenumber"] = (
+            np.arange(nl) - np.repeat(starts, nlines) + 1).astype(np.int32)
         lineitem["l_suppkey"] = _part_suppliers(extra["l_partkey"], supp_i,
                                                 num_supp)
         del supp_i

@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from velox_tpu_torch.types import BIGINT, BOOLEAN, DataType
 from velox_tpu_torch.types.types import RowType, row_type
-from velox_tpu_torch.expr.ir import Expr, FieldRef
+from velox_tpu_torch.expr.ir import Call, Expr, FieldRef
 from velox_tpu_torch.expr.parser import parse_expr
 from velox_tpu_torch.expr.compiler import resolve_types
 from velox_tpu_torch.functions.aggregates import lookup_aggregate
@@ -276,6 +276,11 @@ class PlanBuilder:
         arg_types: List[Optional[DataType]] = []
         for i, a in enumerate(aggs):
             name, fn, fargs, distinct = _parse_agg(a, f"a{i}")
+            if fn in ("max_data_size_for_stats", "sum_data_size_for_stats"):
+                # MaxSizeForStatsAggregate / SumDataSizeForStats: max or
+                # sum over the per-row serialized size
+                fargs = [Call(None, "data_size_for_stats", tuple(fargs))]
+                fn = fn.split("_data_size", 1)[0]
             lookup_aggregate(fn)  # validate early
             fields: List[str] = []
             types: List[DataType] = []
@@ -322,10 +327,17 @@ class PlanBuilder:
         for name, spec, at in zip(agg_names, specs, arg_types):
             fn = lookup_aggregate(spec.fn)
             if step == AggStep.PARTIAL:
-                # one column per accumulator lane: ``name$lane``
-                for li, lt in enumerate(fn.lane_types(at)):
-                    out_names.append(f"{name}${li}")
-                    out_types.append(lt)
+                # one column per accumulator lane, ``name$lane``; a matrix
+                # lane one per slot, ``name$lane@slot``
+                for li, (lane, lt) in enumerate(
+                        zip(fn.lanes, fn.lane_types(at))):
+                    if lane.width == 1:
+                        out_names.append(f"{name}${li}")
+                        out_types.append(lt)
+                    else:
+                        for j in range(lane.width):
+                            out_names.append(f"{name}${li}@{j}")
+                            out_types.append(lt)
             else:
                 out_names.append(name)
                 out_types.append(fn.resolve_type(at))
@@ -333,6 +345,60 @@ class PlanBuilder:
         self.node = AggregationNode(
             new_id(), out_schema, source, step, tuple(key_names),
             tuple(agg_names), tuple(specs))
+        return self
+
+    def partial_aggregation(self, keys: Sequence[str], aggs: Sequence[str],
+                            masks: Optional[Dict[str, str]] = None
+                            ) -> "PlanBuilder":
+        """The PARTIAL step: emits the keys and each aggregate's lanes."""
+        return self.aggregate(keys, aggs, AggStep.PARTIAL, masks)
+
+    def final_aggregation(self, keys: Optional[Sequence[str]] = None,
+                          aggs: Optional[Sequence[str]] = None
+                          ) -> "PlanBuilder":
+        """The FINAL step over partial lane columns. With no arguments the
+        keys and aggregates are those of the nearest PARTIAL aggregation
+        upstream; explicit ``aggs`` name lane columns ``name$i``."""
+        schema = self.node.output_type
+        if keys is None or aggs is None:
+            src = self.node
+            while src is not None and not (
+                    isinstance(src, AggregationNode)
+                    and src.step == AggStep.PARTIAL):
+                src = src.sources[0] if src.sources else None
+            if src is None:
+                raise ValueError("no upstream partial aggregation")
+            key_names = list(src.keys)
+            agg_names = list(src.agg_names)
+            specs = list(src.aggregates)
+        else:
+            key_names = list(keys)
+            agg_names, specs = [], []
+            for i, a in enumerate(aggs):
+                name, fn, _, distinct = _parse_agg(a, f"a{i}")
+                agg_names.append(name)
+                specs.append(AggregateSpec(fn, None, None, distinct))
+        out_names = list(key_names)
+        out_types = [schema.find_child(n) for n in key_names]
+        for name, spec in zip(agg_names, specs):
+            lane_types = []
+            li = 0
+            while True:
+                if schema.contains(f"{name}${li}"):
+                    lane_types.append(schema.find_child(f"{name}${li}"))
+                elif schema.contains(f"{name}${li}@0"):
+                    lane_types.append(schema.find_child(f"{name}${li}@0"))
+                else:
+                    break
+                li += 1
+            if not lane_types:
+                raise ValueError(f"no partial lanes for {name}")
+            out_names.append(name)
+            out_types.append(lookup_aggregate(spec.fn).resolve_final_type(
+                tuple(lane_types)))
+        self.node = AggregationNode(
+            new_id(), row_type(out_names, out_types), self.node,
+            AggStep.FINAL, tuple(key_names), tuple(agg_names), tuple(specs))
         return self
 
     def distinct(self) -> "PlanBuilder":

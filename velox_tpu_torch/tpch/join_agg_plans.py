@@ -498,13 +498,15 @@ def _moments(n, s1, s2, s3, s4, a3, kurt: bool):
     return out, ok, err
 
 
-def oracle_aggregates(li, grouping: str, args=None, parts=None):
+def oracle_aggregates(li, grouping: str, args=None, parts=None,
+                      rows=None):
     """``{name: (values, mask, err)}`` for every aggregate of ``parts``
     but ``checksum`` (``err``: the absolute tolerance beyond 1e-9
     relative, None where the value must be exact), with the group keys,
     in key order; and ``(perm, starts)``. ``args``: ``agg_arguments(li)``
-    when the caller has them."""
-    perm, starts, keys = group_rows(li, grouping)
+    when the caller has them; ``rows``: ``group_rows(li, grouping)``
+    when the caller has it."""
+    perm, starts, keys = rows or group_rows(li, grouping)
     if args is None:
         args = agg_arguments(li)
     out = {k: (v, None, None) for k, v in keys.items()}
@@ -596,7 +598,8 @@ def check_aggregates(got, want, keys) -> Tuple[Optional[str], Dict]:
     string codes and NULL masks exactly, floats to 1e-9 relative plus
     their ``err``; and per float column its largest relative error and
     how many values needed more than 1e-9."""
-    order = np.lexsort([got[k][0] for k in reversed(keys)])
+    order = (np.lexsort([got[k][0] for k in reversed(keys)]) if keys
+             else np.arange(len(next(iter(got.values()))[0])))
     stats = {}
     for name, (wv, wm, err) in want.items():
         if name not in got:

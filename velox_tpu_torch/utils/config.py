@@ -20,6 +20,13 @@ class SessionConfig:
         default_factory=lambda: os.environ.get(
             "VELOX_TPU_NARROW_LANES", "0") == "1")
 
+    #: abandon a partial aggregation whose groups/rows ratio reaches
+    #: ``abandon_partial_agg_min_pct`` once it has seen
+    #: ``abandon_partial_agg_min_rows`` rows (velox
+    #: abandon_partial_aggregation_min_pct / _min_rows)
+    abandon_partial_agg_min_pct: float = 0.8
+    abandon_partial_agg_min_rows: int = 100_000
+
     #: run scan -> filter/project -> aggregation chains as one operator
     #: (exec/fused.py)
     fused_pipelines: bool = True
