@@ -189,7 +189,10 @@ def test_registry_holds_the_references_single_argument_aggregates():
     """The port registers the 19 aggregates of the JAX package's
     ``functions/aggregates.py``, each under the JAX package's name, and
     beside them only the 17 of its ``aggregates_multi.py`` and
-    ``aggregates_noisy.py``."""
+    ``aggregates_noisy.py``, its collect kinds (each under the JAX
+    package's name and kind) and the long-decimal lane aggregates (the
+    JAX package's ``min_wide``/``max_wide`` and the port's exact
+    ``sum_wide``)."""
     from velox_tpu.functions.aggregates import aggregate_registry as jax_reg
     from velox_tpu_torch.functions.aggregates import aggregate_registry
 
@@ -203,8 +206,14 @@ def test_registry_holds_the_references_single_argument_aggregates():
              "product", "entropy", "noisy_count_gaussian",
              "noisy_count_if_gaussian", "noisy_sum_gaussian",
              "noisy_avg_gaussian"}
-    assert set(aggregate_registry) == names | multi
+    collect = {n for n, f in jax_reg.items()
+               if f.collect_kind is not None}
+    wide = {f"{w}_wide{d}" for w in ("min", "max", "sum") for d in (2, 1, 0)}
+    assert set(aggregate_registry) == names | multi | collect | wide
     assert names <= set(jax_reg)
+    for name in collect:
+        assert aggregate_registry[name].collect_kind == \
+            jax_reg[name].collect_kind, name
     for name in names:
         assert len(aggregate_registry[name].lanes) == len(
             jax_reg[name].lanes), name

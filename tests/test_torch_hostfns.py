@@ -2,17 +2,18 @@
 string-function gap between the two packages.
 
 * Every public function of the reference module (but the two digest
-  readers, which wait for ``functions/digest.py``) is called with the
-  same arguments through both modules, one case per family: results,
-  and the type of a raised error, must be equal (NaN equal to NaN).
+  readers, which ``tests/test_torch_digest.py`` holds over digest blobs)
+  is called with the same arguments through both modules, one case per
+  family: results, and the type of a raised error, must be equal (NaN
+  equal to NaN).
 * XXH64 and XXH3-128 are plain Python in the port: with the ``xxhash``
   package hidden they must equal it over inputs of every length class of
   XXH3 (0, 1-3, 4-8, 9-16, 17-128, 129-240 and longer, across its
   1024-byte blocks).
-* The gap: every name of the reference's string binders binds in the
-  port and gives the JAX package's result, except the ten names that
-  read digests and sketches; the families above call every function of
-  the reference module but the digest readers.
+* No gap: every name of the reference's string binders binds in the
+  port and gives the JAX package's result (or raises its error), the ten
+  digest and sketch readers included; the port's module has every
+  public function of the reference's.
 """
 
 import math
@@ -22,7 +23,9 @@ import pytest
 
 import velox_tpu.functions.hostfns as ref
 import velox_tpu_torch.functions.hostfns as port
-from torch_string_exprs import DEFERRED, FAMILIES, PORT_ONLY, string_table
+from torch_string_exprs import (
+    FAMILIES, PORT_ONLY, SKETCH_READERS, string_table,
+)
 from torch_tpch_data import assert_same, table_in_both
 
 #: string inputs of the families
@@ -173,9 +176,10 @@ def test_xxhash_without_the_package(monkeypatch):
 def test_every_reference_name_binds_in_the_port_but_ten():
     """The reference's binder tables and the names it binds beside them
     against the port: each name of ``torch_string_exprs`` binds in the
-    port with the JAX package's result, the ten deferred ones raise
-    ``NotImplementedError``; the port's ``hostfns`` has every function
-    of the reference's but the two digest readers."""
+    port with the JAX package's result, the ten digest and sketch readers
+    (deferred until the digest slice) too: over text that is no sketch
+    they give the JAX package's NULLs or raise its error. The port's
+    ``hostfns`` has every public function of the reference's."""
     import velox_tpu.expr.compiler as C
     from velox_tpu.exec import run_plan as jax_run_plan
     from velox_tpu.plan import PlanBuilder as JaxPlanBuilder
@@ -188,8 +192,8 @@ def test_every_reference_name_binds_in_the_port_but_ten():
                  | {"length", "concat", "substr", "date_format",
                     "format_datetime"})
     exprs = {n: e for fam in FAMILIES.values() for n, e in fam.items()}
-    assert len(DEFERRED) == 10
-    assert reference == set(exprs) | set(DEFERRED) | set(PORT_ONLY)
+    assert len(SKETCH_READERS) == 10
+    assert reference == set(exprs) | set(SKETCH_READERS) | set(PORT_ONLY)
 
     cols, dicts = string_table()
     with table_in_both("gap", cols, dicts, batch_rows=16):
@@ -202,14 +206,20 @@ def test_every_reference_name_binds_in_the_port_but_ten():
                 e = e.replace(name, "strpos")
             assert_same(got, jax_run_plan(project(JaxPlanBuilder, e))
                         .to_pydict(), name)
-        for name, e in DEFERRED.items():
-            with pytest.raises(NotImplementedError, match=name):
-                torch_run_plan(project(TorchPlanBuilder, e))
+        for name, e in SKETCH_READERS.items():
+            try:
+                want = jax_run_plan(project(JaxPlanBuilder, e)).to_pydict()
+            except ValueError:
+                with pytest.raises(ValueError):
+                    torch_run_plan(project(TorchPlanBuilder, e))
+                continue
+            assert_same(torch_run_plan(project(TorchPlanBuilder, e)), want,
+                        name)
 
     public = {n for n in dir(ref) if not n.startswith("_")
               and callable(getattr(ref, n))
               and getattr(getattr(ref, n), "__module__", "") == ref.__name__}
     digests = {"digest_value_at_quantile", "digest_quantile_at_value"}
     assert public - {n for n in dir(port) if not n.startswith("_")} == \
-        digests
+        set()
     assert set().union(*CASES.values()) == public - digests

@@ -123,9 +123,10 @@ FAMILIES = {
     },
 }
 
-#: names the reference binds and the port leaves to the digest and
-#: sketch slices
-DEFERRED = {
+#: the digest and sketch readers, over a column of plain strings: the
+#: JAX package gives NULL where the text is no sketch, and raises
+#: ValueError in the four t-digest readers
+SKETCH_READERS = {
     "value_at_quantile": "value_at_quantile(s, 0.5)",
     "quantile_at_value": "quantile_at_value(s, 1.0)",
     "sketch_cardinality": "sketch_cardinality(s)",

@@ -1,0 +1,461 @@
+"""Collect-mode aggregation finish (the port of the JAX package's
+``exec/collect_agg.py`` for its scalar- and blob-valued kinds).
+
+``HashAggregationOp`` in mode "collect" buffers its raw input batches and
+calls :func:`finish_collect` once: one global grouping of every row
+(``group_ids_sorted``), the scatter aggregates run once against the final
+group ids (``_scalar_result``: all rows are present, so no partial and
+merge round; one slot a group), and each collect aggregate sorts its rows into
+group-contiguous runs (``collect_runs``):
+
+* ``percentile``: the exact ``approx_percentile`` (float32 position);
+* ``winsorized``: ``approx_winsorized_mean``, the mean after clamping to
+  the exact [lo, hi] quantile values;
+* ``digest`` / ``digest_merge``: ``tdigest_agg``/``qdigest_agg`` blobs
+  built on the host from each group's value-sorted run, and ``merge`` of
+  blobs in row order (``_digest_column``);
+* ``hll`` / ``khll``: ``approx_set``, ``make_set_digest`` and
+  ``khyperloglog_agg`` (``_sketch_column``). The values are hashed once
+  each (integers on the device), and what a blob keeps is chosen on the
+  device: HyperLogLog registers by one scatter-max, a SetDigest's 2048
+  smallest distinct hashes and a KHyperLogLog's 512 smallest x-hashes
+  with their 32 smallest uii-hashes by one sort each; the host writes
+  the blobs, byte for byte the JAX package's.
+
+Blob columns are VARBINARY over a sorted dictionary of the group blobs.
+The output keeps the group slots (a power of two at least the group
+count), not the input's capacity. The ARRAY/MAP kinds wait for the
+complex types (``HashAggregationOp`` refuses them).
+"""
+
+from __future__ import annotations
+
+import base64
+import struct
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from velox_tpu_torch.functions import sketch as SK
+from velox_tpu_torch.functions.aggregates import init_lane
+from velox_tpu_torch.functions.aggregates_collect import (
+    collect_runs, f32_positions, first_masked, percentile_values,
+)
+from velox_tpu_torch.functions.digest import build_group_digests
+from velox_tpu_torch.ops.groupby import group_ids_sorted
+from velox_tpu_torch.ops.sort import lex_sort
+from velox_tpu_torch.ops.sortkey import encode_sort_key
+from velox_tpu_torch.types.types import TypeKind
+from velox_tpu_torch.utils import syncs
+from velox_tpu_torch.vector.batch import Batch, round_capacity
+from velox_tpu_torch.vector.column import Column, Dictionary
+
+#: the int64 with only the sign bit: XOR maps unsigned order to signed
+_SIGN = -(1 << 63)
+
+#: seconds spent building blobs (from the sorted runs to the blob column,
+#: the host's formatting and the device work it waits on) since the last
+#: ``reset_blob_seconds``
+blob_seconds = 0.0
+
+
+def reset_blob_seconds() -> None:
+    global blob_seconds
+    blob_seconds = 0.0
+
+
+def _spec_mask(spec, cols, sel):
+    """Row mask of one aggregate: the batch selection AND its mask."""
+    m = sel
+    if spec.mask is not None:
+        mv, mvd = cols[spec.mask]
+        m = m & mv
+        if mvd is not None:
+            m = m & mvd
+    return m
+
+
+def _and_valid(m, valid):
+    return m if valid is None else m & valid
+
+
+def finish_collect(op, big: Batch) -> Batch:
+    """Run the whole aggregation (scatter and collect aggregates) over
+    ``big``, the concatenation of every input batch."""
+    cap = big.capacity
+    cols = {n: (big.column(n).values, big.column(n).valid)
+            for n in op._needed}
+    sel = big.sel
+    key_pairs = [cols[k] for k in op.keys]
+    gids, group_rows, group_sel, ng = group_ids_sorted(key_pairs, sel)
+    if not op.keys:
+        # a global aggregation emits one row, even on empty input
+        group_sel = torch.zeros_like(group_sel)
+        group_sel[0] = True
+    n_groups = max(syncs.to_int(ng), 1)
+    out_cap = min(round_capacity(n_groups), cap)
+    slots = slice(0, out_cap)
+
+    out: Dict[str, Column] = {}
+    for k, (v, va) in zip(op.keys, key_pairs):
+        rows = group_rows[slots]
+        kt = op.output_type.find_child(k)
+        out[k] = Column(kt, v.index_select(0, rows),
+                        None if va is None else va.index_select(0, rows),
+                        big.column(k).dictionary)
+    gsel = group_sel[slots]
+    for i, (name, spec, fn) in enumerate(zip(op.agg_names, op.specs,
+                                             op.fns)):
+        m = _spec_mask(spec, cols, sel)
+        kind = fn.collect_kind
+        t = op.output_type.find_child(name)
+        if kind is None:
+            vals, valid = _scalar_result(op, i, fn, spec, cols, gids, m,
+                                         group_sel[:n_groups], n_groups)
+            out[name] = op._agg_column(name, _pad(vals, out_cap),
+                                       _pad(valid, out_cap))
+        elif kind == "percentile":
+            vf, qf = spec.arg
+            vv, vvd = cols[vf]
+            mm = _and_valid(m, vvd)
+            q = cols[qf][0].index_select(0, first_masked(mm)[None])[0]
+            vals, ok = percentile_values(
+                gids, vv, encode_sort_key(vv, None), mm, q)
+            out[name] = Column(t, vals[slots], (group_sel & ok)[slots])
+        elif kind == "winsorized":
+            mean, ok = _winsorized(spec, cols, gids, m, n_groups)
+            out[name] = Column(t, _pad(mean, out_cap), _pad(
+                group_sel[:n_groups] & ok, out_cap))
+        elif kind in ("digest", "digest_merge"):
+            out[name] = _digest_column(big, t, spec, fn, cols, gids, m,
+                                       n_groups, out_cap)
+        elif kind in ("hll", "khll"):
+            out[name] = _sketch_column(big, t, spec, fn, cols, gids, m,
+                                       n_groups, out_cap)
+        else:
+            raise NotImplementedError(kind)
+    return Batch(out, gsel)
+
+
+def _pad(a: torch.Tensor, n: int) -> torch.Tensor:
+    """``a`` zero-padded (False for a mask) to length ``n``."""
+    if a.shape[0] >= n:
+        return a[:n]
+    return torch.cat([a, a.new_zeros((n - a.shape[0],) + a.shape[1:])])
+
+
+def _winsorized(spec, cols, gids, m, n_groups):
+    """approx_winsorized_mean(x, lo, hi): each group's values clamped to
+    its exact lo/hi quantile values (float32 positions), averaged: one
+    slot a group, so into a few groups the sum is one masked reduction
+    each (``scatter_add``), not atomics on a few addresses."""
+    from velox_tpu_torch.functions.aggregates import scatter_add
+
+    cap = gids.shape[0]
+    xf, lof, hif = spec.arg
+    xv, xvd = cols[xf]
+    first = first_masked(m)[None]
+    lo = cols[lof][0].index_select(0, first)[0]
+    hi = cols[hif][0].index_select(0, first)[0]
+    mm = _and_valid(m, xvd)
+    perm, counts, starts = collect_runs(gids, mm, encode_sort_key(xv, None))
+    sv = xv.index_select(0, perm).to(torch.float64)
+    sentinel = torch.full((), cap, dtype=torch.int64, device=gids.device)
+    og = torch.where(mm, gids.to(torch.int64), sentinel).index_select(0, perm)
+    ogs = og.clamp(max=cap - 1)
+    n1 = torch.clamp(counts.index_select(0, ogs) - 1, min=0)
+    st = starts.index_select(0, ogs)
+    lo_pos = (st + f32_positions(lo, n1)).clamp(0, cap - 1)
+    hi_pos = (st + f32_positions(hi, n1)).clamp(0, cap - 1)
+    cl = torch.minimum(torch.maximum(sv, sv.index_select(0, lo_pos)),
+                       sv.index_select(0, hi_pos))
+    tot = scatter_add(torch.zeros(n_groups, dtype=torch.float64,
+                                  device=gids.device), og, cl)
+    counts = counts[:n_groups]
+    return tot / torch.clamp(counts, min=1), counts > 0
+
+
+def _scalar_result(op, i, fn, spec, cols, gids, m, group_sel, n_groups):
+    """A scatter aggregate against the final group ids, one slot a group
+    (the reference keeps one a row): into few groups its sums take the
+    shared few-groups reductions, and under narrow lanes a 32-bit sum
+    into 2-128 groups the grouped-sum kernel B1."""
+    cap = gids.shape[0]
+    at = op.arg_types[i]
+    accs = tuple(init_lane(lane, at, n_groups, gids.device)
+                 for lane in fn.lanes)
+    if spec.arg is None:
+        vals = None
+    elif isinstance(spec.arg, tuple):
+        vals = tuple(cols[a] for a in spec.arg)
+    else:
+        av, avd = cols[spec.arg]
+        m = _and_valid(m, avd)
+        vals = av
+    if spec.distinct:
+        _, drows, dsel, _ = group_ids_sorted([(gids, None), (vals, None)], m)
+        rep = torch.zeros(cap + 1, dtype=torch.bool, device=gids.device)
+        rep[torch.where(dsel, drows, torch.full_like(drows, cap))] = True
+        m = rep[:cap]
+    return fn.extract(fn.accumulate(accs, gids, vals, m), group_sel)
+
+
+# ---------------------------------------------------------- host halves
+
+def _blob_column(t, strs: List, out_cap: int, device) -> Column:
+    """A VARBINARY column over a sorted dictionary of the group blobs."""
+    live = [s is not None for s in strs]
+    blobs = np.asarray([s for s in strs if s is not None], dtype=object)
+    uniq, inv = (np.unique(blobs, return_inverse=True) if len(blobs)
+                 else (np.zeros(0, object), np.zeros(0, np.int64)))
+    codes = np.full(out_cap, -1, np.int32)
+    valid = np.zeros(out_cap, bool)
+    valid[:len(strs)] = live
+    codes[np.nonzero(valid)[0]] = np.asarray(inv).reshape(-1)
+    return Column(t, torch.from_numpy(codes).to(device),
+                  torch.from_numpy(valid).to(device),
+                  Dictionary(list(uniq)))
+
+
+def _runs_to_host(values, runs, n_groups):
+    """(counts, starts, run values) of the first ``n_groups`` slots of
+    ``collect_runs``' result ``runs``, on the host."""
+    perm, counts, starts = runs
+    head = syncs.to_numpy(torch.stack([counts[:n_groups],
+                                       starts[:n_groups]]))
+    total = int(head[0].sum())
+    return head[0], head[1], syncs.to_numpy(
+        values.index_select(0, perm[:total]))
+
+
+def _digest_column(big, t, spec, fn, cols, gids, m, n_groups, out_cap):
+    """tdigest_agg / qdigest_agg / merge: serialize each group's sorted
+    run into a digest blob, or merge each group's blobs in row order."""
+    import time
+
+    global blob_seconds
+    av, avd = cols[spec.arg]
+    mm = _and_valid(m, avd)
+    if fn.collect_kind == "digest":
+        src_t = big.column(spec.arg).dtype
+        k = "f" if src_t.kind in (TypeKind.REAL, TypeKind.DOUBLE) else "i"
+        tag = "QD1" if fn.name == "qdigest_agg" else "TD1"
+        perm, counts, starts = collect_runs(
+            gids, mm, encode_sort_key(av, None))
+        t0 = time.perf_counter()
+        strs = (_device_digests(av, perm, counts, starts, n_groups, tag)
+                if k == "i" else None)
+        if strs is None:
+            c, s, ev = _runs_to_host(av, (perm, counts, starts), n_groups)
+            strs = build_group_digests(c, s, ev, k, tag)
+    else:
+        t0 = time.perf_counter()
+        counts, starts, codes = _runs_to_host(
+            av, collect_runs(gids, mm), n_groups)
+        values = big.column(spec.arg).dictionary.values
+        strs = [None] * n_groups
+        for g in np.nonzero(counts > 0)[0].tolist():
+            run = codes[starts[g]:starts[g] + counts[g]]
+            strs[g] = SK.merge_blobs(values[run[run >= 0]].tolist())
+    col = _blob_column(t, strs, out_cap, gids.device)
+    blob_seconds += time.perf_counter() - t0
+    return col
+
+
+def _device_digests(av, perm, counts, starts, n_groups, tag):
+    """``build_group_digests`` of an integral source with the bucketing on
+    the device: each element's k1 bucket gathered from the host's table
+    per group size, centroid weights and sums by one scatter each; the
+    host formats the nonzero cells. The sums are of integers below 2^53,
+    so exact in any order, as the host's sequential ``bincount`` is.
+    None where they might not be (the host path then runs)."""
+    from velox_tpu_torch.functions.digest import (
+        DEFAULT_COMPRESSION, bucket_table, digest_strings,
+    )
+
+    C = DEFAULT_COMPRESSION
+    head = syncs.to_numpy(torch.stack([counts[:n_groups],
+                                       starts[:n_groups]]))
+    lc_all, st_all = head
+    total = int(lc_all.sum())
+    live = np.nonzero(lc_all > 0)[0]
+    sv = av.index_select(0, perm[:total]).to(torch.float64)
+    if total:
+        bound = syncs.to_numpy(sv.abs().max()).item()
+        if bound * float(lc_all.max()) >= 2.0 ** 53:
+            return None
+    lc = lc_all[live]
+    table, sizes, offsets = bucket_table(lc, C)
+    dev = av.device
+    owner = torch.repeat_interleave(
+        torch.arange(len(live), device=dev),
+        torch.from_numpy(lc).to(dev), output_size=total)
+    first = torch.from_numpy(st_all[live]).to(dev)
+    base = torch.from_numpy(offsets[np.searchsorted(sizes, lc)]).to(dev)
+    i_in = torch.arange(total, device=dev) - first.index_select(0, owner)
+    b = torch.from_numpy(table).to(dev).index_select(
+        0, base.index_select(0, owner) + i_in)
+    key = owner * C + b
+    w = torch.bincount(key, minlength=len(live) * C)
+    s = torch.zeros(len(live) * C, dtype=torch.float64, device=dev)
+    s.index_add_(0, key, sv)
+    nz = syncs.nonzero(w)
+    wn = w.index_select(0, nz).to(torch.float64)
+    ends = first + torch.from_numpy(lc).to(dev) - 1
+    out = syncs.to_numpy(torch.cat([
+        s.index_select(0, nz) / wn, wn, sv.index_select(0, first),
+        sv.index_select(0, ends)]))
+    m = len(nz)
+    return digest_strings(n_groups, live, lc, syncs.to_numpy(nz),
+                          out[:m], out[m:2 * m], out[2 * m:2 * m + len(live)],
+                          out[2 * m + len(live):], "i", tag, C)
+
+
+def _hashes(big, field: str, values: torch.Tensor, mask: torch.Tensor
+            ) -> torch.Tensor:
+    """``hash64`` of each row's value as int64 bits (garbage where
+    ``mask`` is false): dictionary strings through one hash per
+    dictionary value (kept with the dictionary), floats through one per
+    distinct value on the host, integers through one per distinct value
+    on the device."""
+    col = big.column(field)
+    if col.dictionary is not None:
+        table = col.dictionary.derived(
+            ("hash64",), lambda d: SK.hash64_array(
+                np.asarray(d.values, dtype=object)).view(np.int64))
+        t = torch.from_numpy(table).to(values.device)
+        if len(table) == 0:
+            return torch.zeros_like(values, dtype=torch.int64)
+        return t.index_select(0, values.to(torch.int64).clamp(
+            0, len(table) - 1))
+    if values.dtype.is_floating_point:
+        rows = syncs.nonzero(mask)
+        h = SK.hash64_array(syncs.to_numpy(values.index_select(0, rows)))
+        out = torch.zeros(values.shape, dtype=torch.int64,
+                          device=values.device)
+        out[rows] = torch.from_numpy(h.view(np.int64)).to(values.device)
+        return out
+    # one hash per distinct integer: a sort, then BLAKE2b over the few
+    uniq, inv = torch.unique(values.to(torch.int64), return_inverse=True)
+    return SK.hash64_ints(uniq).index_select(0, inv.reshape(-1))
+
+
+def _first_of_runs(*sorted_ops):
+    """Where a row of lexicographically sorted operands starts a new
+    value of the tuple."""
+    n = sorted_ops[0].shape[0]
+    new = torch.zeros(n, dtype=torch.bool, device=sorted_ops[0].device)
+    new[0] = True
+    for o in sorted_ops:
+        new[1:] |= o[1:] != o[:-1]
+    return new
+
+
+def _rank_in(new_run, new_elem):
+    """For sorted rows: each row's index among the ``new_elem`` rows since
+    the last ``new_run`` row (``new_run`` implies ``new_elem``)."""
+    idx = torch.cumsum(new_elem.to(torch.int64), 0) - 1
+    run = torch.cumsum(new_run.to(torch.int64), 0) - 1
+    base = torch.zeros(int(run.shape[0]) + 1, dtype=torch.int64,
+                       device=idx.device)
+    base.scatter_(0, torch.where(new_run, run, torch.full_like(run,
+                                                              run.shape[0])),
+                  idx)
+    return idx - base.index_select(0, run.clamp(min=0))
+
+
+def _hll_registers(g, h, n_groups: int) -> np.ndarray:
+    """(n_groups, 2^HLL_LOG2M) uint8 registers: a scatter-max of each
+    hash's rank into its group's bucket (rows with ``g >= n_groups``
+    drop)."""
+    log2m = SK.HLL_LOG2M
+    m = 1 << log2m
+    bucket = h & (m - 1)
+    rest = (h >> log2m) & ((1 << (64 - log2m)) - 1)
+    width = 64 - log2m
+    bl = torch.frexp(rest.to(torch.float64))[1].to(torch.int64)
+    rank = torch.where(rest != 0, width - bl + 1,
+                       torch.full_like(bl, width + 1))
+    slot = torch.where(g < n_groups, g * m + bucket,
+                       torch.full_like(g, n_groups * m))
+    regs = torch.zeros(n_groups * m + 1, dtype=torch.int32, device=g.device)
+    regs.scatter_reduce_(0, slot, rank.to(torch.int32), "amax",
+                         include_self=True)
+    return syncs.to_numpy(regs[:-1].to(torch.uint8)).reshape(n_groups, m)
+
+
+def _sketch_column(big, t, spec, fn, cols, gids, m, n_groups, out_cap):
+    """approx_set / make_set_digest / khyperloglog_agg blobs of each
+    group's values."""
+    import time
+
+    global blob_seconds
+    t0 = time.perf_counter()
+    cap = gids.shape[0]
+    sentinel = torch.full((), cap, dtype=torch.int64, device=gids.device)
+    strs: List = [None] * n_groups
+    if fn.collect_kind == "hll":
+        av, avd = cols[spec.arg]
+        mm = _and_valid(m, avd)
+        g = torch.where(mm, gids.to(torch.int64), sentinel)
+        h = _hashes(big, spec.arg, av, mm)
+        regs = _hll_registers(g, h, n_groups)
+        counts = syncs.to_numpy(torch.bincount(
+            g.clamp(max=n_groups), minlength=n_groups + 1)[:n_groups])
+        if fn.name == "make_set_digest":
+            perm = lex_sort([g, h ^ _SIGN])
+            sg, sh = g.index_select(0, perm), h.index_select(0, perm)
+            new = _first_of_runs(sg, sh) & (sg < n_groups)
+            rank = _rank_in(_first_of_runs(sg) & (sg < n_groups), new)
+            keep = syncs.nonzero(new & (rank < SK.SD_K))
+            kg = syncs.to_numpy(sg.index_select(0, keep))
+            kh = syncs.to_numpy(sh.index_select(0, keep)).view(np.uint64)
+        live = np.nonzero(counts > 0)[0]
+        if fn.name == "approx_set":
+            head = "HL1|%d|" % SK.HLL_LOG2M
+            for gi in live.tolist():
+                strs[gi] = head + base64.b64encode(
+                    regs[gi].tobytes()).decode()
+        else:
+            ends = np.cumsum(np.bincount(kg, minlength=n_groups))
+            head = "SD1|%d|" % SK.HLL_LOG2M
+            for gi in live.tolist():
+                s = ends[gi - 1] if gi else 0
+                strs[gi] = (head + base64.b64encode(regs[gi].tobytes())
+                            .decode() + "|" + SK._pack_u64(kh[s:ends[gi]]))
+    else:  # khll
+        xf, uf = spec.arg
+        xv, xvd = cols[xf]
+        uv, uvd = cols[uf]
+        mm = _and_valid(_and_valid(m, xvd), uvd)
+        g = torch.where(mm, gids.to(torch.int64), sentinel)
+        xh = _hashes(big, xf, xv, mm)
+        uh = _hashes(big, uf, uv, mm)
+        perm = lex_sort([g, xh ^ _SIGN, uh ^ _SIGN])
+        sg, sx, su = (a.index_select(0, perm) for a in (g, xh, uh))
+        ok = sg < n_groups
+        new_g = _first_of_runs(sg) & ok
+        new_x = _first_of_runs(sg, sx) & ok
+        new_t = _first_of_runs(sg, sx, su) & ok
+        keep = (new_t & (_rank_in(new_g, new_x) < SK.KHLL_K)
+                & (_rank_in(new_x, new_t) < SK.KHLL_UCAP))
+        rows = syncs.nonzero(keep)
+        kg, kx, ku = (syncs.to_numpy(a.index_select(0, rows))
+                      for a in (sg, sx, su))
+        kx, ku = kx.view(np.uint64), ku.view(np.uint64)
+        newrec = np.ones(len(kg), bool)
+        newrec[1:] = (kg[1:] != kg[:-1]) | (kx[1:] != kx[:-1])
+        rec = np.nonzero(newrec)[0]
+        rec_end = np.append(rec[1:], len(kg))
+        head = "KH1|%d|%d|" % (SK.KHLL_K, SK.KHLL_UCAP)
+        parts: Dict[int, bytearray] = {}
+        for s, e in zip(rec.tolist(), rec_end.tolist()):
+            buf = parts.setdefault(int(kg[s]), bytearray())
+            buf += struct.pack(">QB", int(kx[s]), e - s)
+            buf += ku[s:e].astype(">u8").tobytes()
+        for gi, buf in parts.items():
+            strs[gi] = head + base64.b64encode(bytes(buf)).decode()
+    col = _blob_column(t, strs, out_cap, gids.device)
+    blob_seconds += time.perf_counter() - t0
+    return col

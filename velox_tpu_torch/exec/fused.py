@@ -38,7 +38,8 @@ def maybe_fuse(chain: List[Operator]) -> List[Operator]:
     # emits per batch: it stays its own operator
     if (k == len(chain) - 1 and isinstance(chain[-1], HashAggregationOp)
             and not isinstance(chain[-1], StreamingAggregationOp)
-            and chain[-1].step != AggStep.FINAL):
+            and chain[-1].step != AggStep.FINAL
+            and not chain[-1]._collect):     # collect mode buffers raw rows
         return [FusedScanAggOp(chain)]
     if k > 1:
         return [FusedScanOp(chain[:k])] + chain[k:]

@@ -12,7 +12,9 @@ FINAL, with a fused HAVING), ``OrderByOp``,
 types with residual filters, ``MergeJoinBuildOp``,
 ``MergeJoinProbeOp``), the cross join
 (``CrossBuildOp``, ``CrossProbeOp``), ``EnforceSingleRowOp``, the
-``ValuesOp`` leaf and ``AssignUniqueIdOp``. Each runs
+``ValuesOp`` leaf and ``AssignUniqueIdOp``. ``HashAggregationOp`` also
+has a collect mode (``exec/collect_agg.py``) for the aggregates that need
+every value at finish. Each runs
 eagerly on the device its batches live on. Blocking operators buffer in
 plain lists; spill stores wait for a later slice. Where a size depends on
 the data (a join's match total, a batch's group count) the operator
@@ -222,6 +224,14 @@ class HashAggregationOp(Operator):
     raw input only, so FINAL drops them). A generic PARTIAL that does not
     reduce is abandoned (``_maybe_abandon``): every later row goes out
     as its own group.
+
+    A SINGLE step with a collect aggregate (``approx_percentile``,
+    ``tdigest_agg``, ``approx_set``, ...) takes the collect mode instead:
+    it buffers its input batches and runs ``exec/collect_agg.finish_collect``
+    once over their concatenation. In PARTIAL and FINAL steps
+    ``approx_percentile`` runs its digest lanes; the other collect
+    aggregates raise there, and the ARRAY/MAP-valued kinds raise in every
+    step until the complex types are ported.
     """
 
     blocking = True
@@ -250,6 +260,7 @@ class HashAggregationOp(Operator):
         if any(s.distinct and isinstance(s.arg, tuple) for s in self.specs):
             raise NotImplementedError(
                 "DISTINCT over multi-argument aggregates")
+        self._collect = self._collect_specs()
         in_schema = node.source.output_type
         self.arg_types: list = []
         #: FINAL: each aggregate's lane columns, one list per lane
@@ -280,6 +291,7 @@ class HashAggregationOp(Operator):
             + [s.mask for s in self.specs if s.mask is not None]
             + [c for groups in self.lane_names for g in groups for c in g]))
         self._entries: List[dict] = []  # generic partials to merge
+        self._raw_batches: List[Batch] = []  # collect mode's input
         self._outputs: collections.deque = collections.deque()  # PARTIAL
         self._array_state: Optional[dict] = None
         self._mode: Optional[str] = None
@@ -305,6 +317,36 @@ class HashAggregationOp(Operator):
         self.runtime: Dict[str, float] = {}
 
     # ----------------------------------------------------------- helpers
+    def _collect_specs(self) -> List[int]:
+        """The aggregates that run in collect mode (``exec/collect_agg.py``):
+        in a SINGLE step every one with a collect kind. In PARTIAL and FINAL
+        steps a collect aggregate with lanes (``approx_percentile``'s
+        digest) runs the lane machinery, and the others raise as the
+        reference's do."""
+        from velox_tpu_torch.functions.aggregates_collect import (
+            COMPLEX_KINDS,
+        )
+
+        for spec, fn in zip(self.specs, self.fns):
+            if fn.collect_kind in COMPLEX_KINDS:
+                raise NotImplementedError(
+                    f"{spec.fn}: ARRAY/MAP-valued collect aggregates wait "
+                    "for the complex types (ROADMAP queue item 6)")
+        if self.step != AggStep.SINGLE:
+            if any(f.collect_kind is not None and not f.lanes
+                   for f in self.fns):
+                raise NotImplementedError(
+                    "partial/final collect planning supports nodes whose "
+                    "aggregates are ALL array_agg/set_agg/map_agg; other "
+                    "collect aggregates (map_union, histogram, ...) are "
+                    "single-step")
+            return []
+        collect = [i for i, f in enumerate(self.fns)
+                   if f.collect_kind is not None]
+        if any(self.specs[i].distinct for i in collect):
+            raise NotImplementedError("DISTINCT over collect aggregates")
+        return collect
+
     def _arg_fields(self, spec) -> List[str]:
         """The input columns an aggregate reads (none in a FINAL step,
         which reads lane columns)."""
@@ -345,6 +387,11 @@ class HashAggregationOp(Operator):
     def decide_mode_dicts(self, key_dicts) -> str:
         if self._mode is not None:
             return self._mode
+        if self._collect:
+            # collect aggregates buffer raw rows; one global grouping at
+            # finish (exec/collect_agg.py)
+            self._mode = "collect"
+            return self._mode
         if self.keys and not self.has_distinct:
             dicts = [key_dicts.get(k) for k in self.keys]
             if all(d is not None for d in dicts):
@@ -365,6 +412,10 @@ class HashAggregationOp(Operator):
         self.decide_mode_dicts({
             k: batch.column(k).dictionary for k in self.keys})
         self.note_key_dicts(batch)
+        if self._mode == "collect":
+            self._device = batch.device
+            self._raw_batches.append(batch.project(self._needed))
+            return
         self.add_columns(_cols_of(batch, self._needed), batch.sel)
 
     def add_columns(self, cols, sel) -> None:
@@ -633,6 +684,8 @@ class HashAggregationOp(Operator):
         if not self.no_more_input_seen or self._emitted:
             return None
         self._emitted = True
+        if self._collect:
+            return self._finish_collect()
         if self._mode == "array":
             return self._finish_array()
         if self.step == AggStep.PARTIAL:
@@ -641,6 +694,21 @@ class HashAggregationOp(Operator):
             return self._empty_result()
         entries, self._entries = self._entries, []
         return self._merge_entries(entries)
+
+    def _finish_collect(self) -> Batch:
+        """Collect mode: every buffered batch concatenated, then one
+        global grouping (``exec/collect_agg.finish_collect``). With no
+        input at all, an empty batch stands in (keyless: one row)."""
+        from velox_tpu_torch.exec.collect_agg import finish_collect
+
+        batches, self._raw_batches = self._raw_batches, []
+        if not batches:
+            src = self.node.source.output_type
+            batches = [Batch.empty_like(
+                row_type(self._needed,
+                         [src.find_child(n) for n in self._needed]),
+                round_capacity(1), self._device or plan_device(self.node))]
+        return finish_collect(self, concat_batches(batches))
 
     def _finish_array(self) -> Batch:
         """kArray output: every group slot, live where a row was seen;
@@ -847,6 +915,9 @@ class StreamingAggregationOp(HashAggregationOp):
         if self.has_distinct:
             raise NotImplementedError(
                 "distinct aggregates stream nowhere: aggregate them")
+        if self._collect:
+            raise NotImplementedError(
+                "collect aggregates need the hash aggregation")
         #: (key pairs of 1-element tensors, lanes per aggregate) or None
         self._carry: Optional[Tuple[list, list]] = None
         having = getattr(node, "having", None)

@@ -197,7 +197,9 @@ class Task:
 
 
 def run_plan(plan) -> Dict[str, List]:
-    """Execute and materialize the result as ``{column: [values]}``."""
+    """Execute and materialize the result as ``{column: [values]}``; the
+    digit lanes of a long decimal come back as one column of
+    ``decimal.Decimal`` values (``reassemble_wide``)."""
     from velox_tpu_torch.plan.builder import PlanBuilder
 
     if isinstance(plan, PlanBuilder):
@@ -206,7 +208,59 @@ def run_plan(plan) -> Dict[str, List]:
     for b in Task(plan).run():
         for n, vals in b.to_pydict().items():
             out[n].extend(vals)
-    return out
+    return reassemble_wide(out)
+
+
+def reassemble_wide(out: Dict[str, List]) -> Dict[str, List]:
+    """Each triple of long-decimal lanes ``{base}#w{2,1,0}s{scale}`` back
+    into one DECIMAL(38, scale) column named ``base`` at the place of its
+    first lane (the JAX package's Arrow output): ``d2 * 2^84 + d1 * 2^42 +
+    d0``; an average (``{base}#wn`` present) divided by its count,
+    rounded half away from zero; a magnitude of 10^38 or more is NULL."""
+    import decimal
+
+    from velox_tpu_torch.types.widedec import parse_lane
+
+    wide: Dict[tuple, Dict[int, str]] = {}
+    for name in out:
+        pl = parse_lane(name)
+        if pl is not None:
+            wide.setdefault((pl[0], pl[2]), {})[pl[1]] = name
+    wide = {k: v for k, v in wide.items() if set(v) == {0, 1, 2}}
+    if not wide:
+        return out
+    lane_of = {n: k for k, v in wide.items() for n in v.values()}
+    ctx = decimal.Context(prec=60)
+    res: Dict[str, List] = {}
+    for name, vals in out.items():
+        if name.endswith("#wn") and name[:-3] in {b for b, _ in wide}:
+            continue   # an average's divisor, read below
+        if name not in lane_of:
+            res[name] = vals
+            continue
+        base, scale = lane_of[name]
+        if base in res:
+            continue
+        lanes = wide[(base, scale)]
+        d2, d1, d0 = (out[lanes[d]] for d in (2, 1, 0))
+        cnt = out.get(f"{base}#wn")
+        col = []
+        for i in range(len(d2)):
+            if d2[i] is None:
+                col.append(None)
+                continue
+            v = (int(d2[i]) << 84) + (int(d1[i]) << 42) + int(d0[i])
+            if cnt is not None:
+                n = int(cnt[i]) if cnt[i] else 0
+                if n == 0:
+                    col.append(None)
+                    continue
+                sgn = -1 if v < 0 else 1
+                v = sgn * ((2 * abs(v) + n) // (2 * n))
+            col.append(None if abs(v) >= 10 ** 38 else
+                       decimal.Decimal(v).scaleb(-scale, ctx))
+        res[base] = col
+    return res
 
 
 #: the JAX package's name for the same result surface

@@ -86,6 +86,35 @@ class DictTransform(Expr):
         return id(self)
 
 
+@dataclass(frozen=True, eq=False)
+class PairTransform(Expr):
+    """A host function of two dictionary columns (the sketch set
+    operations), evaluated once per distinct pair of codes that occurs in
+    a batch: the pairs are found on the device (one host sync), the host
+    calls ``fn`` on each new pair's values (kept across batches in
+    ``memo``), and the device gathers the results. The JAX package
+    enumerates the whole cross product of the two dictionaries at bind
+    time, which a column of 10^5 sketch blobs puts out of reach; the
+    results are the same."""
+
+    codes_a: Expr = None        # type: ignore[assignment]
+    codes_b: Expr = None        # type: ignore[assignment]
+    values_a: tuple = ()
+    values_b: tuple = ()
+    fn: object = None
+    memo: object = None         # dict: (i, j) -> result or None
+
+    @property
+    def children(self):
+        return (self.codes_a, self.codes_b)
+
+    def __eq__(self, other):
+        return self is other
+
+    def __hash__(self):
+        return id(self)
+
+
 _EPOCH = datetime.date(1970, 1, 1)
 _ARITH = {"plus", "minus", "multiply", "divide", "mod"}
 _COMPARE = {"eq", "neq", "lt", "lte", "gt", "gte"}
@@ -113,6 +142,11 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
         return TryExpr(child.dtype, child)
 
     if isinstance(expr, Call):
+        if expr.name in _COMPARE or expr.name in (
+                "between", "is_null", "is_not_null"):
+            wide = _resolve_wide_compare(expr, schema)
+            if wide is not None:
+                return wide
         args = tuple(resolve_types(a, schema) for a in expr.args)
         name = expr.name
         string = _resolve_string_call(name, args)
@@ -161,6 +195,110 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
     raise TypeError(f"cannot resolve {expr!r}")
 
 
+def _wide_lanes(schema: RowType, name: str):
+    """(lane FieldRefs (d2, d1, d0), scale) when ``name`` is a shredded
+    long-decimal column (``types/widedec.py`` lane names), else None."""
+    from velox_tpu_torch.types.widedec import parse_lane
+
+    for n in schema.names:
+        if n.startswith(f"{name}#w2s"):
+            base, _d, scale = parse_lane(n)
+            if base != name:
+                continue
+            lanes = [f"{name}#w{d}s{scale}" for d in (2, 1, 0)]
+            if all(schema.contains(x) for x in lanes):
+                return [FieldRef(BIGINT, x) for x in lanes], scale
+    return None
+
+
+def _literal_unscaled(e: Expr, scale: int) -> int:
+    """A literal's unscaled value at ``scale``, exactly: an integer or a
+    numeral's decimal text, never through a float (the JAX package takes
+    ``round(v * 10**scale)`` of a float and loses digits past 2^53)."""
+    import decimal
+
+    if not isinstance(e, Literal) or e.value is None:
+        raise TypeError("long-decimal comparison needs a literal operand")
+    v = e.value
+    if isinstance(v, bool) or not isinstance(v, (int, float,
+                                                 decimal.Decimal)):
+        raise TypeError("long-decimal comparison needs a numeric literal")
+    if isinstance(v, int):
+        return v * 10 ** scale
+    d = decimal.Decimal(e.text or repr(v)) if isinstance(v, float) else v
+    return int(d.scaleb(scale, decimal.Context(prec=80)).to_integral_value(
+        decimal.ROUND_HALF_EVEN))
+
+
+def _resolve_wide_compare(expr: Call, schema: RowType):
+    """A compare or NULL test on a shredded long-decimal column: the
+    literal splits into signed digits and the compare becomes a
+    lexicographic chain over the three lanes (signed digits order like
+    the int128 values, velox/type/HugeInt.h); ``IS [NOT] NULL`` reads
+    the top lane. None where no operand is such a column."""
+    from velox_tpu_torch.types.widedec import split_ints
+
+    ref = next((a for a in expr.args if isinstance(a, FieldRef)
+                and not schema.contains(a.name)), None)
+    if ref is None:
+        return None
+    wl = _wide_lanes(schema, ref.name)
+    if wl is None:
+        return None
+    lanes, scale = wl
+    name = expr.name
+    if name in ("is_null", "is_not_null"):
+        return resolve_types(Call(BOOLEAN, name, (lanes[0],)), schema)
+
+    def digits(e):
+        d2, d1, d0 = split_ints([_literal_unscaled(e, scale)])
+        return [Literal(BIGINT, int(d[0])) for d in (d2, d1, d0)]
+
+    f2, f1, f0 = lanes
+
+    def chain(op, lits):
+        # lexicographic (d2, d1, d0) <op> (L2, L1, L0), op strict
+        l2, l1, l0 = lits
+        return Call(BOOLEAN, "or", (
+            Call(BOOLEAN, op, (f2, l2)),
+            Call(BOOLEAN, "and", (
+                Call(BOOLEAN, "eq", (f2, l2)),
+                Call(BOOLEAN, "or", (
+                    Call(BOOLEAN, op, (f1, l1)),
+                    Call(BOOLEAN, "and", (
+                        Call(BOOLEAN, "eq", (f1, l1)),
+                        Call(BOOLEAN, op, (f0, l0))))))))))
+
+    def equal(lits):
+        l2, l1, l0 = lits
+        return Call(BOOLEAN, "and", (
+            Call(BOOLEAN, "eq", (f2, l2)),
+            Call(BOOLEAN, "and", (Call(BOOLEAN, "eq", (f1, l1)),
+                                  Call(BOOLEAN, "eq", (f0, l0))))))
+
+    others = [a for a in expr.args if a is not ref]
+    if name == "between":
+        lo, hi = digits(others[0]), digits(others[1])
+        out = Call(BOOLEAN, "and", (
+            Call(BOOLEAN, "or", (chain("gt", lo), equal(lo))),
+            Call(BOOLEAN, "or", (chain("lt", hi), equal(hi)))))
+        return resolve_types(out, schema)
+    lits = digits(others[0])
+    if name == "eq":
+        out = equal(lits)
+    elif name == "neq":
+        out = Call(BOOLEAN, "not", (equal(lits),))
+    else:
+        op = name
+        if not isinstance(expr.args[0], FieldRef):   # literal <op> field
+            op = {"lt": "gt", "lte": "gte", "gt": "lt", "gte": "lte"}[op]
+        out = chain({"lt": "lt", "lte": "lt", "gt": "gt", "gte": "gt"}[op],
+                    lits)
+        if op in ("lte", "gte"):
+            out = Call(BOOLEAN, "or", (out, equal(lits)))
+    return resolve_types(out, schema)
+
+
 #: date parts that read DATE (day) lanes
 _DAY_PART_FNS = {
     "year", "month", "day", "day_of_month", "day_of_week", "dow",
@@ -188,6 +326,13 @@ def _resolve_string_call(name: str, args) -> Optional[Expr]:
         return Call(BOOLEAN, name, args)
     if name in _DICT_VALUE_FNS:
         return Call(_DICT_VALUE_FNS[name][0], name, args)
+    if name in _PAIR_HOST_FNS:
+        return Call(_PAIR_HOST_FNS[name][0], name, args)
+    if (name == "cardinality" and args and args[0].dtype is not None
+            and args[0].dtype.is_string):
+        # cardinality of a sketch blob (HLL / SetDigest / KHLL), not of an
+        # ARRAY or MAP
+        return Call(BIGINT, "sketch_cardinality", args)
     if (name == "data_size_for_stats" and args[0].dtype is not None
             and args[0].dtype.is_string):
         # a 4-byte length prefix and the UTF-8 bytes (velox/functions/
@@ -756,9 +901,10 @@ def _make_dict_value_fns():
     string additions: velox/functions/lib/Re2Functions.h,
     DateTimeFormatter/, prestosql/json/, URLFunctions.h,
     BinaryFunctions.h, StringFunctions.h), each run once per distinct
-    dictionary value. The digest and sketch readers wait for the port of
-    ``functions/digest.py`` and ``functions/sketch.py``."""
+    dictionary value, the digest and sketch readers among them (one call
+    per distinct blob: ``functions/digest.py``, ``functions/sketch.py``)."""
     from velox_tpu_torch.functions import hostfns as H
+    from velox_tpu_torch.functions import sketch as SK
 
     return {
         "regexp_like": (BOOLEAN, H.regexp_like),
@@ -847,10 +993,102 @@ def _make_dict_value_fns():
         "xxhash128": (VARCHAR, H.xxhash128_hex),
         "spooky_hash_v2_32": (VARCHAR, H.spooky_hash_v2_32),
         "spooky_hash_v2_64": (VARCHAR, H.spooky_hash_v2_64),
+        "value_at_quantile": (DOUBLE, H.digest_value_at_quantile),
+        "quantile_at_value": (DOUBLE, H.digest_quantile_at_value),
+        # sketch blob readers (HyperLogLogFunctions.h, SetDigestFunctions,
+        # KHyperLogLog, TDigestFunctions.h)
+        "sketch_cardinality": (BIGINT, SK.sketch_cardinality),
+        "scale_tdigest": (VARCHAR, _scale_tdigest_host),
+        "trimmed_mean": (DOUBLE, _trimmed_mean_host),
+        "hash_counts": (VARCHAR, SK.hash_counts),
+        "uniqueness_distribution": (VARCHAR, SK.uniqueness_distribution),
+        "reidentification_potential": (DOUBLE,
+                                       SK.reidentification_potential),
     }
 
 
+def _parse_each(d) -> dict:
+    """``parse_digest`` of every value of a dictionary (the error, where a
+    value is no digest)."""
+    from velox_tpu_torch.functions.digest import parse_digest
+
+    out = {}
+    for v in d.values.tolist():
+        try:
+            out[v] = parse_digest(v)
+        except Exception as e:      # raised again by the reader that reads it
+            out[v] = e
+    return out
+
+
+def _make_digest_readers():
+    """name -> reader of a parsed digest (``functions/digest.py``), which
+    the binder calls with the parse it keeps with the dictionary."""
+    from velox_tpu_torch.functions import digest as D
+
+    return {
+        "value_at_quantile": lambda p, v, q: D.value_at_quantile_parsed(p, q),
+        "quantile_at_value": lambda p, v, x: D.quantile_at_value_parsed(
+            p, x),
+        "trimmed_mean": lambda p, v, lo, hi: D.trimmed_mean_parsed(
+            p, float(lo), float(hi)),
+        "scale_tdigest": lambda p, v, f: D.scale_tdigest_parsed(
+            p, v.split("|", 1)[0], float(f)),
+    }
+
+
+_DIGEST_READERS = _make_digest_readers()
+
+
+def _scale_tdigest_host(blob, factor):
+    from velox_tpu_torch.functions.digest import scale_tdigest_blob
+
+    return scale_tdigest_blob(blob, float(factor))
+
+
+def _trimmed_mean_host(blob, lo, hi):
+    from velox_tpu_torch.functions.digest import trimmed_mean_blob
+
+    return trimmed_mean_blob(blob, float(lo), float(hi))
+
+
 _DICT_VALUE_FNS = _make_dict_value_fns()
+
+
+def _make_pair_host_fns():
+    """name -> (result type, host function) of the functions of TWO
+    dictionary columns (the sketch set operations of
+    ``functions/sketch.py``), evaluated once per distinct pair of values;
+    the device sees one combined-code gather."""
+    from velox_tpu_torch.functions import sketch as SK
+
+    return {
+        "intersection_cardinality": (BIGINT, SK.intersection_cardinality),
+        "jaccard_index": (DOUBLE, SK.jaccard_index),
+    }
+
+
+_PAIR_HOST_FNS = _make_pair_host_fns()
+
+def _bind_pair_host(name, args, dictionaries) -> Expr:
+    """A function of two dictionary columns (or literals): a
+    ``PairTransform`` over their codes and values."""
+    dst, fn = _PAIR_HOST_FNS[name]
+
+    def source(a):
+        if isinstance(a, Literal):
+            if a.value is None:
+                return Literal(INTEGER, -1), ()
+            return Literal(INTEGER, 0), (str(a.value),)
+        s = _dict_source((a,), dictionaries)
+        if s is None or s[1] is None:
+            raise TypeError(
+                f"{name} requires dictionary-encoded (or literal) inputs")
+        return s[0], tuple(str(v) for v in s[1].values)
+
+    ca, va = source(args[0])
+    cb, vb = source(args[1])
+    return PairTransform(dst, ca, cb, va, vb, fn, {})
 
 
 def _bind_dict_value(name, args, dictionaries) -> Expr:
@@ -877,6 +1115,28 @@ def _bind_dict_value(name, args, dictionaries) -> Expr:
 
     def call(v):
         return fn(*extras[:pos], v, *extras[pos:])
+
+    if name == "sketch_cardinality":
+        # every HyperLogLog blob of the dictionary estimated in one pass
+        from velox_tpu_torch.functions.sketch import sketch_cardinalities
+
+        def batch(d):
+            out = np.empty(len(d), dtype=object)
+            out[:] = sketch_cardinalities(d.values.tolist())
+            return _typed(out, np.dtype(dst.dtype))
+
+        return DictTransform(dst, codes_expr,
+                             *d.derived((name,), batch))
+    if name in _DIGEST_READERS and pos == 0:
+        # each blob parsed once for every digest reader of the dictionary
+        parsed = d.derived(("parse_digest",), _parse_each)
+        reader = _DIGEST_READERS[name]
+
+        def call(v):  # noqa: F811
+            p = parsed[v]
+            if isinstance(p, Exception):
+                raise p
+            return reader(p, v, *extras)
 
     key = (name, pos) + tuple(map(repr, extras))
     made = (_string_transform(d, key, call) if dst.is_string
@@ -1008,7 +1268,7 @@ def bind_strings(expr: Expr, dictionaries: Dict[str, "Dictionary"],
     string columns compare ranks in the union of their dictionaries;
     string functions and casts become ``DictTransform`` gathers.
     """
-    if isinstance(expr, (FieldRef, Literal, DictTransform)):
+    if isinstance(expr, (FieldRef, Literal, DictTransform, PairTransform)):
         return expr
     if isinstance(expr, Cast):
         child = bind_strings(expr.expr, dictionaries, ranges)
@@ -1079,6 +1339,8 @@ def _bind_string_call(name, args, dictionaries, ranges) -> Optional[Expr]:
         return _bind_string_multi(name, args, dictionaries)
     if name in _DICT_VALUE_FNS:
         return _bind_dict_value(name, args, dictionaries)
+    if name in _PAIR_HOST_FNS:
+        return _bind_pair_host(name, args, dictionaries)
     if name in ("date_format", "format_datetime"):
         return _bind_range_format(name, args, ranges)
     if name in _INT_VALUE_FNS:
@@ -1384,6 +1646,43 @@ class ExprSet:
                                        table)   # keeps id(table) unique
         return hit[0]
 
+    def _eval_pairs(self, expr: PairTransform, arrays, memo, device
+                    ) -> ValuePair:
+        """``fn`` of each row's (value_a, value_b): once per distinct code
+        pair of the batch (and of the expression's earlier batches); a
+        NULL code on either side, or a None result, is NULL."""
+        from velox_tpu_torch.utils import syncs
+
+        ca, va = self._eval(expr.codes_a, arrays, memo, device)
+        cb, vb = self._eval(expr.codes_b, arrays, memo, device)
+        ca = ca.to(torch.int64).expand(cb.shape) if ca.dim() == 0 else \
+            ca.to(torch.int64)
+        cb = cb.to(torch.int64).expand(ca.shape) if cb.dim() == 0 else \
+            cb.to(torch.int64)
+        nb = len(expr.values_b) + 1
+        comb = (ca.clamp(min=-1) + 1) * nb + (cb.clamp(min=-1) + 1)
+        uniq, inv = torch.unique(comb, return_inverse=True)
+        lane = (np.dtype(np.int64) if expr.dtype.is_integer
+                else np.dtype(expr.dtype.dtype))
+        table = np.zeros(len(uniq), dtype=lane)
+        ok = np.zeros(len(uniq), dtype=np.bool_)
+        for k, u in enumerate(syncs.to_numpy(uniq).tolist()):
+            i, j = u // nb - 1, u % nb - 1
+            if i < 0 or j < 0:
+                continue
+            if (i, j) not in expr.memo:
+                expr.memo[(i, j)] = expr.fn(expr.values_a[i],
+                                            expr.values_b[j])
+            v = expr.memo[(i, j)]
+            if v is not None:
+                table[k], ok[k] = v, True
+        out = torch.from_numpy(table).to(device).index_select(0, inv)
+        valid = torch.from_numpy(ok).to(device).index_select(0, inv)
+        for v in (va, vb):
+            if v is not None:
+                valid = valid & v
+        return out.to(torch_dtype(expr.dtype.dtype)), valid
+
     def _gather_codes(self, table: np.ndarray, codes, device):
         """``table[code + 1]``: code -1 (null, padding) reads entry 0."""
         t = self._host_table(table, device)
@@ -1400,6 +1699,8 @@ class ExprSet:
                 ok = self._gather_codes(expr.valid_table, codes, device)
                 valid = ok if valid is None else torch.logical_and(valid, ok)
             return out, valid
+        if isinstance(expr, PairTransform):
+            return self._eval_pairs(expr, arrays, memo, device)
         if isinstance(expr, Call) and expr.name == "dict_lookup_bool":
             codes, valid = self._eval(expr.args[0], arrays, memo, device)
             return self._gather_codes(expr.args[1].value, codes,

@@ -45,6 +45,9 @@ class FieldRef(Expr):
 @dataclass(frozen=True, eq=False)
 class Literal(Expr):
     value: Any = None
+    #: the numeral as written, for a DOUBLE literal the parser read: a
+    #: long-decimal compare takes its digits from here, not the float
+    text: Optional[str] = None
 
     def __str__(self) -> str:
         return repr(self.value)

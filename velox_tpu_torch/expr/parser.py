@@ -282,7 +282,7 @@ def _parse_primary(t: _Tokens) -> Expr:
     k, v = t.next()
     if k == "NUM":
         if "." in v or "e" in v.lower():
-            return lit(float(v), DOUBLE)
+            return Literal(DOUBLE, float(v), v)
         return lit(int(v), BIGINT)
     if k == "STR":
         return lit(v, VARCHAR)

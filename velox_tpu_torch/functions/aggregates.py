@@ -79,6 +79,10 @@ class AggregateFunction:
     #: (values, mask, arg_type) -> one tensor per lane, in the lane's
     #: dtype, masked rows at the lane identity
     lane_contribs: Optional[Callable] = None
+    #: the collect-mode kind (``exec/collect_agg.py``) of an aggregate that
+    #: needs every input value at finish (``percentile``, ``digest``,
+    #: ``hll``, ...); None for a scatter aggregate
+    collect_kind: Optional[str] = None
 
     @property
     def scannable(self) -> bool:

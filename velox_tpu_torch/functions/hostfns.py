@@ -13,8 +13,8 @@ Re2Functions (velox/functions/lib/Re2Functions.h), DateTimeFormatter
 
 It needs the standard library only: XXH64 and XXH3-128 are written out
 in Python below, so no ``xxhash`` package is needed. The readers of
-t-digest and q-digest blobs (``value_at_quantile``,
-``quantile_at_value``) wait for the port of ``functions/digest.py``.
+t-digest and q-digest blobs (``digest_value_at_quantile``,
+``digest_quantile_at_value``) call ``functions/digest.py``.
 """
 
 from __future__ import annotations
@@ -525,6 +525,20 @@ def word_stem_en(s: str, lang: str = "en") -> str:
 def octet_length(s: str) -> int:
     """UTF-8 byte length (prestosql octet_length)."""
     return len(s.encode("utf-8"))
+
+
+def digest_value_at_quantile(digest: str, q) -> "float | None":
+    """value_at_quantile(tdigest|qdigest, q) — TDigestFunctions.h."""
+    from velox_tpu_torch.functions.digest import value_at_quantile
+
+    return value_at_quantile(digest, q)
+
+
+def digest_quantile_at_value(digest: str, v) -> "float | None":
+    """quantile_at_value(tdigest|qdigest, v) — TDigestFunctions.h."""
+    from velox_tpu_torch.functions.digest import quantile_at_value
+
+    return quantile_at_value(digest, v)
 
 
 # --------------------------------------------------------- IP functions

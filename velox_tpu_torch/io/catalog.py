@@ -12,7 +12,12 @@ produces for the same data:
 * decimal overrides (integer columns taken as unscaled decimals, on the
   lane ``decimal_lane_dtype`` picks when the table is registered);
 * table-global ``(min, max)`` stats on integer and date lanes, and the
-  ``sorted_cols``/``unique_cols`` ordering facts the optimizer reads.
+  ``sorted_cols``/``unique_cols`` ordering facts the optimizer reads;
+* long decimals (``shred_wide_decimals``): a DECIMAL(p > 18) column given
+  as Python ints (``None`` is NULL) stays one int64 lane while every value
+  fits int64, and otherwise becomes three signed-digit lanes
+  ``{c}#w{d}s{scale}`` (``types/widedec.py``), listed in
+  ``Table.wide_groups``.
 
 This is where the state a query reads crosses to the device: the device
 is fixed here, once (``device=None`` means the CUDA card).
@@ -20,7 +25,7 @@ is fixed here, once (``device=None`` means the CUDA card).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -52,6 +57,8 @@ class Table:
     sorted_cols: frozenset = frozenset()
     #: subset of sorted_cols that are strictly increasing (hence unique)
     unique_cols: frozenset = frozenset()
+    #: long-decimal columns shredded to digit lanes (types/widedec.py)
+    wide_groups: Dict[str, List[str]] = field(default_factory=dict)
 
     @property
     def num_rows(self) -> int:
@@ -131,6 +138,42 @@ def _ordering_stats(lanes: Mapping[str, np.ndarray], types) -> tuple:
     return frozenset(sorted_cols), frozenset(unique_cols)
 
 
+def shred_wide_decimals(columns: Mapping[str, np.ndarray],
+                        decimal_overrides: Dict[str, tuple]):
+    """The numpy counterpart of the JAX package's ``shred_wide_decimals``:
+    each overridden column held as Python ints (an object array, ``None``
+    for NULL) becomes an int64 lane when every value fits int64, else the
+    three digit lanes ``{c}#w{d}s{scale}`` in its place (their override
+    dropped: the lanes are BIGINT, the scale rides their names). Returns
+    (columns, overrides, NULL masks by column, wide groups)."""
+    from velox_tpu_torch.types.widedec import lane_names, split_ints
+
+    out: Dict[str, np.ndarray] = {}
+    overrides = dict(decimal_overrides)
+    nulls: Dict[str, np.ndarray] = {}
+    wide: Dict[str, List[str]] = {}
+    for c, arr in columns.items():
+        arr = np.asarray(arr)
+        if c not in overrides or arr.dtype != object:
+            out[c] = arr
+            continue
+        isnull = np.equal(arr, None).astype(bool)
+        vals = np.where(isnull, 0, arr)
+        fits = bool(np.all((vals >= -(1 << 63)) & (vals < (1 << 63))))
+        if fits:
+            out[c] = vals.astype(np.int64)
+            if isnull.any():
+                nulls[c] = isnull
+            continue
+        names = lane_names(c, overrides.pop(c)[1])
+        for n, lane in zip(names, split_ints(vals)):
+            out[n] = lane
+            if isnull.any():
+                nulls[n] = isnull
+        wide[c] = names
+    return out, overrides, nulls, wide
+
+
 def register_columns(
     name: str, columns: Mapping[str, np.ndarray],
     dictionaries: Optional[Mapping[str, Union[Sequence[str],
@@ -144,13 +187,16 @@ def register_columns(
     ``dictionaries`` names the string columns: each such column holds
     int32 codes (-1 = null) into its value list. ``decimal_overrides``
     maps integer columns to ``(precision, scale)``: the stored integers
-    are unscaled decimals (cents). ``device=None`` means the CUDA card;
+    are unscaled decimals (cents); one given as an object array of Python
+    ints may hold ``None`` (NULL) and values past int64
+    (``shred_wide_decimals``). ``device=None`` means the CUDA card;
     without one this raises, and callers that want the CPU say so.
     """
     dev = resolve_device(device)
     dictionaries = {k: (v.values if isinstance(v, Dictionary) else v)
                     for k, v in (dictionaries or {}).items()}
-    decimal_overrides = dict(decimal_overrides or {})
+    columns, decimal_overrides, nulls, wide_groups = shred_wide_decimals(
+        columns, dict(decimal_overrides or {}))
     names = list(columns)
     lanes = {n: _lane(np.asarray(columns[n])) for n in names}
     lengths = {len(v) for v in lanes.values()}
@@ -208,14 +254,19 @@ def register_columns(
                 # pad by replicating the last value (ascending lanes
                 # stay ascending through the tail, as at JAX ingest)
                 vals[rows:] = vals[rows - 1]
-            cols[c] = Column(t, torch.from_numpy(vals).to(dev),
+            valid = None
+            if c in nulls:
+                v = np.zeros(ccap, dtype=bool)
+                v[:rows] = ~nulls[c][start:start + rows]
+                valid = torch.from_numpy(v).to(dev)
+            cols[c] = Column(t, torch.from_numpy(vals).to(dev), valid,
                              stats=stats.get(c))
         sel = torch.zeros(ccap, dtype=torch.bool)
         sel[:rows] = True
         batches.append(Batch(cols, sel.to(dev), num_rows=rows))
     schema = batches[0].schema
     t = Table(name, schema, batches, sorted_cols=sorted_cols,
-              unique_cols=unique_cols)
+              unique_cols=unique_cols, wide_groups=wide_groups)
     _TABLES[name] = t
     return t
 

@@ -112,6 +112,46 @@ def _collect_field_refs(expr):
         yield from _collect_field_refs(c)
 
 
+def _expand_wide(parsed, schema, masks):
+    """Long-decimal aggregate expansion: ``count``/``sum``/``avg``/
+    ``min``/``max`` over a shredded DECIMAL(p > 18) column become
+    aggregates of its digit lanes whose output names carry the lane
+    pattern (``{name}#w{d}s{scale}``, and ``{name}#wn`` for an average's
+    count); ``run_plan`` reassembles them. Sums read all three lanes and
+    carry between them (``functions/aggregates_wide.py``), where the JAX
+    package sums each lane alone. A mask on the call applies to every
+    lane aggregate."""
+    from velox_tpu_torch.expr.compiler import _wide_lanes
+
+    out = []
+    for name, fn, fargs, distinct in parsed:
+        wl = None
+        if (len(fargs) == 1 and isinstance(fargs[0], FieldRef)
+                and not schema.contains(fargs[0].name)):
+            wl = _wide_lanes(schema, fargs[0].name)
+        if wl is None:
+            out.append((name, fn, fargs, distinct))
+            continue
+        lanes, scale = wl
+        lane_out = [f"{name}#w{d}s{scale}" for d in (2, 1, 0)]
+        if name in masks:
+            for ln in lane_out + [f"{name}#wn"]:
+                masks[ln] = masks[name]
+        if fn == "count":
+            out.append((name, "count", [lanes[2]], distinct))
+        elif fn in ("sum", "avg"):
+            for d, ln in zip((2, 1, 0), lane_out):
+                out.append((ln, f"sum_wide{d}", list(lanes), distinct))
+            if fn == "avg":
+                out.append((f"{name}#wn", "count", [lanes[2]], distinct))
+        elif fn in ("min", "max"):
+            for d, ln in zip((2, 1, 0), lane_out):
+                out.append((ln, f"{fn}_wide{d}", list(lanes), distinct))
+        else:
+            raise NotImplementedError(f"{fn} over long-decimal columns")
+    return out
+
+
 class PlanBuilder:
     """Build a plan tree fluently; every method returns self."""
 
@@ -256,7 +296,7 @@ class PlanBuilder:
     ) -> "PlanBuilder":
         step = AggStep(step) if isinstance(step, str) else step
         schema = self.node.output_type
-        masks = masks or {}
+        masks = dict(masks or {})
 
         key_names: List[str] = []
         pre_names: List[str] = []
@@ -274,8 +314,13 @@ class PlanBuilder:
         specs: List[AggregateSpec] = []
         agg_names: List[str] = []
         arg_types: List[Optional[DataType]] = []
-        for i, a in enumerate(aggs):
-            name, fn, fargs, distinct = _parse_agg(a, f"a{i}")
+        for name, fn, fargs, distinct in _expand_wide(
+                [_parse_agg(a, f"a{i}") for i, a in enumerate(aggs)],
+                schema, masks):
+            if fn == "reduce_agg":
+                raise NotImplementedError(
+                    "reduce_agg: its lambda state waits for the complex "
+                    "types (ROADMAP queue item 6)")
             if fn in ("max_data_size_for_stats", "sum_data_size_for_stats"):
                 # MaxSizeForStatsAggregate / SumDataSizeForStats: max or
                 # sum over the per-row serialized size
