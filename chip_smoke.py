@@ -150,6 +150,20 @@ Phases (any failure ends the run with a nonzero exit code):
    filter against a literal past int64, exact against Python's ints.
    Every plan's B1/B2 launches must be 0; each is timed and profiled as
    the queries are, with its blob-building seconds.
+14. (right after phase 13, on the same tables) the complex types
+   (``velox_tpu_torch/tpch/complex_plans.py``, hash aggregations): P1
+   ``array_agg``/``set_agg`` by ``l_orderkey`` (15M arrays, 60M elements)
+   and one projection of ``cardinality``, ``array_sum``, ``contains``,
+   ``element_at``, ``array_sort``, ``array_distinct``, ``transform``,
+   ``any_match`` and ``filter``; P2 those arrays unnested WITH ORDINALITY
+   and summed by ``l_orderkey`` (the direct sums); P3 ``map_agg`` by
+   ``l_orderkey`` with ``map_keys``, ``map_values``, ``element_at`` and
+   ``map_filter``; P4 Q1's filter, ``array_agg`` by Q1's keys, unnest
+   and the sum by the same keys under narrow lanes (Q1's
+   ``sum_base_price`` of phase 3's oracle; its B1/B2 launches recorded).
+   P1-P3 are read as arrays (row lengths and flat elements in row order)
+   and held against numpy exactly; each is timed and profiled as the
+   queries are, with its host syncs and peak device memory.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -792,6 +806,9 @@ def run_join_queries(card: str, times: dict, q1_q6) -> dict:
     del row_cache
     log(f"phase 13 (collect aggregation, sketches, long decimals): "
         f"{(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    complex_types = run_complex(tables, card, times, q1_q6[0])
+    log(f"phase 14 (complex types): {(time.perf_counter() - t0):.3f} s")
 
     for t in tables:
         drop_table(t)
@@ -812,7 +829,8 @@ def run_join_queries(card: str, times: dict, q1_q6) -> dict:
     torch.cuda.empty_cache()
     return {"runs": counts, "rank_forms_ms": rank_ms, "more": more,
             "scalar": scalar, "strings": strings, "join_agg": join_agg,
-            "agg_steps": agg_steps, "collect": collect}
+            "agg_steps": agg_steps, "collect": collect,
+            "complex": complex_types}
 
 
 #: the columns Q3 and Q18 read (the DOUBLE run registers only these)
@@ -1925,6 +1943,77 @@ def run_collect(tables, dicts, card: str, times: dict,
     return out
 
 
+def run_complex(tables, card: str, times: dict, q1_rows) -> dict:
+    """Phase 14, over the lineitem that phase 4 registered (cents,
+    narrow lanes): ``velox_tpu_torch/tpch/complex_plans.py``'s plans as
+    hash aggregations. P1-P3 are read as arrays and held against their
+    numpy oracles exactly; P4 against ``q1_rows`` (phase 3's Q1 oracle).
+    Each plan runs once with its host syncs, launches and peak memory
+    counted, then is timed (median of warm runs) and profiled once.
+    Returns, per plan, the counts and times."""
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.exec.task import Task
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.tpch import complex_plans as cx
+    from velox_tpu_torch.utils.config import config
+
+    li = tables["lineitem"]
+    t0 = time.perf_counter()
+    runs = cx.order_runs(li)
+    oracles = oracles_side_by_side(
+        {"P1 arrays": lambda: cx.arrays_oracle(li, runs),
+         "P2 unnest": lambda: cx.unnest_oracle(li, runs),
+         "P3 maps": lambda: cx.maps_oracle(li, runs)}, "phase 14")
+    log(f"phase 14 oracles: {time.perf_counter() - t0:.3f} s on the host "
+        f"({len(runs[2])} orders)")
+    out = {}
+    optimize, narrow = config.optimize_plans, config.narrow_lanes
+    config.optimize_plans, config.narrow_lanes = False, True
+    try:
+        for label, make in cx.PLANS.items():
+            plan = make(PlanBuilder).build()
+            if label == "P4 Q1 unnest":
+                got, run = _peak_run(lambda: run_plan(plan))
+                check(len(got["n"]) == len(q1_rows), f"{label}: row count")
+                for i, row in enumerate(q1_rows):
+                    check(got["l_returnflag"][i] == row["l_returnflag"]
+                          and got["l_linestatus"][i] == row["l_linestatus"]
+                          and got["n"][i] == row["count_order"]
+                          and int(got["sum_base_price"][i].scaleb(2))
+                          == row["sum_base_price"],
+                          f"{label}: row {i} differs from Q1's oracle")
+                note = (f"{len(q1_rows)} groups equal to Q1's "
+                        "sum_base_price and count")
+            else:
+                got, run = _peak_run(lambda: cx.complex_result(plan))
+                want = oracles[label][0]
+                bad = cx.same_result(got, want)
+                check(not bad, f"{label}: {bad} differ from the oracle")
+                lens = {n: int(w[1].sum()) for n, w in want.items()
+                        if w[0] == "nested"}
+                note = (f"{len(want['l_orderkey'][1])} rows equal to the "
+                        f"oracle; elements {lens}")
+
+            def drain():
+                for _ in Task(plan).run():
+                    pass
+
+            wall = wall_ms(drain, reps=3)
+            busy = device_breakdown(drain, label, wall, card, top=5)
+            times[label] = wall
+            out[label] = {**run, "wall_ms": wall, "busy_ms": busy}
+            log(f"{label}: {note}; host syncs {run['syncs']}, launches B1 "
+                f"{run['grouped_sum_i32']} B2 "
+                f"{run['grouped_multi_sum_i32']}; first run "
+                f"{run['first_run_ms']:.1f} ms, warm wall {wall} ms, busy "
+                f"{busy} ms (share {busy / wall}); peak device memory "
+                f"{run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} "
+                f"above the tables) on {card}")
+    finally:
+        config.optimize_plans, config.narrow_lanes = optimize, narrow
+    return out
+
+
 def bind_over_result(plan) -> float:
     """Seconds to bind the projection at the top of ``plan`` against a
     fresh run of the plan below it (its dictionaries new, so nothing of
@@ -2355,6 +2444,7 @@ def main() -> int:
                      if isinstance(r, dict)})
     by_query.update({k: r for k, r in joins["collect"].items()
                      if isinstance(r, dict)})
+    by_query.update(joins["complex"])
     by_query.update(ds)
     by_query.update(windows)
     more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
@@ -2381,6 +2471,7 @@ def main() -> int:
                       "join_agg": joins["join_agg"],
                       "agg_steps": joins["agg_steps"],
                       "collect": joins["collect"],
+                      "complex": joins["complex"],
                       "rank_forms_ms": joins["rank_forms_ms"],
                       "tpcds_queries": ds, "window_plans": windows}))
     print(card)

@@ -170,8 +170,16 @@ def test_narrow_lanes_give_the_single_step(ca_table, monkeypatch):
     "array_agg(x) AS r", "map_agg(k, x) AS r", "histogram(i) AS r",
     "approx_most_frequent(3, i) AS r"])
 def test_array_and_map_kinds_wait_for_complex_types(ca_table, agg):
-    with pytest.raises(NotImplementedError, match="queue item 6"):
-        torch_run_plan(_plan(["k"], [agg, "count(*) AS n"]))
+    """The complex types are ported: array_agg, map_agg and histogram
+    equal the JAX package beside a scatter aggregate; the kinds of
+    ROADMAP A.2's slice 12 still raise, naming it."""
+    aggs = [agg, "count(*) AS n"]
+    if agg.startswith("approx_most_frequent"):
+        with pytest.raises(NotImplementedError, match="slice 12"):
+            torch_run_plan(_plan(["k"], aggs))
+        return
+    assert_same(torch_run_plan(_plan(["k"], aggs)), ca_table(["k"], aggs),
+                agg)
 
 
 def test_streaming_collect_raises_as_the_reference(ca_table):

@@ -132,10 +132,16 @@ def test_grammar_filters_match_jax(both, predicate):
 
 
 def test_missing_function_names_the_gap(both):
+    from velox_tpu_torch.expr.ir import Call, FieldRef, Literal
+    from velox_tpu_torch.types import BIGINT
+
+    adjust = Call(None, "__tz_adjust", (FieldRef(None, "i"),
+                                        Literal(BIGINT, 0),
+                                        Literal(BIGINT, 0)))
     with pytest.raises(NotImplementedError,
-                       match="'cardinality' is not ported"):
+                       match="'__tz_adjust' is not ported"):
         torch_run_plan(TorchPlanBuilder().values(both.batches[1]).project(
-            ["cardinality(i) AS c"]))
+            [("c", adjust)]))
 
 
 def test_min_max_over_strings_against_numpy(monkeypatch):
@@ -174,18 +180,10 @@ def test_min_max_over_strings_against_numpy(monkeypatch):
             assert got == keyless, f"keyless optimize={optimize}"
 
 
-#: what the JAX package registers and the port leaves to the complex-type
-#: and time-zone slices (ROADMAP A.6)
+#: what the JAX package registers and the port leaves to the time-zone
+#: slice (ROADMAP A.2, slice 12); the complex types' 26 names are ported
 NOT_PORTED = {
-    "__array_all_match", "__array_any_match", "__array_avg",
-    "__array_contains", "__array_element_at", "__array_find_first",
-    "__array_find_first_index", "__array_max", "__array_max_by",
-    "__array_min", "__array_min_by", "__array_none_match",
-    "__array_position", "__array_sum", "array_average", "array_distinct",
-    "array_max", "array_min", "array_position", "array_sort", "array_sum",
-    "__capture", "__map_element_at", "cardinality", "contains",
-    "element_at", "__tz_adjust", "__tz_unadjust", "__timezone_hour",
-    "__timezone_minute",
+    "__tz_adjust", "__tz_unadjust", "__timezone_hour", "__timezone_minute",
 }
 
 
@@ -196,9 +194,9 @@ def test_registry_gap_is_complex_types_and_time_zones():
     from velox_tpu.functions.registry import registry as jax_registry
     from velox_tpu_torch.functions import registry
 
-    assert len(NOT_PORTED) == 30
+    assert len(NOT_PORTED) == 4
     assert set(jax_registry) - set(registry) == NOT_PORTED
-    assert len(set(jax_registry) & set(registry)) == 156
+    assert len(set(jax_registry) & set(registry)) == 182
     for name in set(jax_registry) & set(registry):
         assert registry[name].default_nulls == \
             jax_registry[name].default_nulls, name

@@ -22,10 +22,17 @@ group-contiguous runs (``collect_runs``):
   with their 32 smallest uii-hashes by one sort each; the host writes
   the blobs, byte for byte the JAX package's.
 
+* ``array``/``set``/``set_union``/``histogram``/``map``/``multimap``/
+  ``map_union``/``map_union_sum``: each group's elements are one run of a
+  sorted element column, which is the ARRAY/MAP column's layout. The
+  kinds over an ARRAY or MAP input (``set_union``, ``map_union``,
+  ``map_union_sum``) give each flat element its row's group id
+  (``element_owners``).
+
 Blob columns are VARBINARY over a sorted dictionary of the group blobs.
 The output keeps the group slots (a power of two at least the group
-count), not the input's capacity. The ARRAY/MAP kinds wait for the
-complex types (``HashAggregationOp`` refuses them).
+count), not the input's capacity. The other ARRAY/MAP kinds wait for
+ROADMAP A.2 (slice 12; ``HashAggregationOp`` refuses them).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from velox_tpu_torch.exec.complex_fns import take, take_valid
 from velox_tpu_torch.functions import sketch as SK
 from velox_tpu_torch.functions.aggregates import init_lane
 from velox_tpu_torch.functions.aggregates_collect import (
@@ -49,7 +57,9 @@ from velox_tpu_torch.ops.sortkey import encode_sort_key
 from velox_tpu_torch.types.types import TypeKind
 from velox_tpu_torch.utils import syncs
 from velox_tpu_torch.vector.batch import Batch, round_capacity
-from velox_tpu_torch.vector.column import Column, Dictionary
+from velox_tpu_torch.vector.column import (
+    ArrayColumn, Column, Dictionary, MapColumn,
+)
 
 #: the int64 with only the sign bit: XOR maps unsigned order to signed
 _SIGN = -(1 << 63)
@@ -63,6 +73,22 @@ blob_seconds = 0.0
 def reset_blob_seconds() -> None:
     global blob_seconds
     blob_seconds = 0.0
+
+
+def element_owners(starts: torch.Tensor, lengths: torch.Tensor, ecap: int):
+    """Flat element index -> owning row, and whether the element lies in
+    that row's range. Needs ``starts`` ascending over the rows with
+    ``lengths > 0`` (the offsets every constructor and ``concat_batches``
+    make; ``ops/window.py`` ``run_owners``)."""
+    from velox_tpu_torch.ops.window import run_owners
+
+    cap = starts.shape[0]
+    owner = run_owners(starts, lengths > 0, ecap)
+    osafe = owner.clamp(min=0)
+    e = torch.arange(ecap, dtype=torch.int64, device=starts.device)
+    end = (starts.to(torch.int64) + lengths.to(torch.int64)).index_select(
+        0, osafe.clamp(max=max(cap - 1, 0)))
+    return osafe, (owner >= 0) & (e < end)
 
 
 def _spec_mask(spec, cols, sel):
@@ -85,7 +111,7 @@ def finish_collect(op, big: Batch) -> Batch:
     ``big``, the concatenation of every input batch."""
     cap = big.capacity
     cols = {n: (big.column(n).values, big.column(n).valid)
-            for n in op._needed}
+            for n in op._needed if isinstance(big.column(n), Column)}
     sel = big.sel
     key_pairs = [cols[k] for k in op.keys]
     gids, group_rows, group_sel, ng = group_ids_sorted(key_pairs, sel)
@@ -133,9 +159,196 @@ def finish_collect(op, big: Batch) -> Batch:
         elif kind in ("hll", "khll"):
             out[name] = _sketch_column(big, t, spec, fn, cols, gids, m,
                                        n_groups, out_cap)
+        elif kind in _COMPLEX_FINISH:
+            out[name] = _COMPLEX_FINISH[kind](big, t, spec, cols, gids, m,
+                                              group_sel, out_cap)
         else:
             raise NotImplementedError(kind)
     return Batch(out, gsel)
+
+
+# ---- the ARRAY- and MAP-valued kinds: each group's elements are one run
+# of a sorted element column, which IS the ArrayColumn/MapColumn layout
+# (velox/functions/prestosql/aggregates/ArrayAggAggregate.cpp,
+# MapAggAggregate.cpp, MapUnionAggregate.cpp, HistogramAggregate.cpp)
+
+def _group_valid(group_sel, counts, out_cap):
+    """A group with no element is NULL, as Presto's array_agg is."""
+    return _pad(group_sel, out_cap) & (_pad(counts, out_cap) > 0)
+
+
+def _array_out(t, out_cap, group_sel, counts, starts, ev, evd, d):
+    return ArrayColumn(t, _pad(starts, out_cap), _pad(counts, out_cap),
+                       Column(t.element, ev, evd, d),
+                       _group_valid(group_sel, counts, out_cap))
+
+
+def _map_out(t, out_cap, group_sel, counts, starts, keys: Column,
+             values) -> MapColumn:
+    return MapColumn(t, _pad(starts, out_cap), _pad(counts, out_cap), keys,
+                     values, _group_valid(group_sel, counts, out_cap))
+
+
+def _pairs(gids, values, mm, cap):
+    """Sub-grouping by (group, value): each distinct pair's group id
+    (``cap`` where none), its value, and how many rows it holds, at the
+    pair slots."""
+    g2, rows2, sel2, _ = group_ids_sorted([(gids, None), (values, None)], mm)
+    cnt = torch.zeros(cap + 1, dtype=torch.int64, device=gids.device)
+    cnt.index_add_(0, g2.clamp(max=cap), mm.to(torch.int64))
+    pgid = torch.where(sel2, take(gids, rows2),
+                       torch.full_like(gids, cap))
+    return pgid, take(values, rows2), cnt[:cap], sel2
+
+
+def _finish_array(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """array_agg / set_agg: each group's values in row order (set_agg:
+    the first of each distinct value)."""
+    from velox_tpu_torch.functions.aggregates_collect import dedupe_first
+
+    av, avd = cols[spec.arg]
+    if spec.fn == "set_agg":
+        m = dedupe_first(gids, encode_sort_key(av, avd), m)
+    perm, counts, starts = collect_runs(gids, m)
+    return _array_out(t, out_cap, group_sel, counts, starts, take(av, perm),
+                      take_valid(avd, perm), big.column(spec.arg).dictionary)
+
+
+def _element_groups(col, gids, m):
+    """Each flat element of an ARRAY/MAP input column: its row's group
+    id, ``ecap`` where the element is out of range or its row is masked
+    or NULL."""
+    flat = col.keys if isinstance(col, MapColumn) else col.elements
+    ecap = flat.capacity
+    owner, within = element_owners(col.starts, col.lengths, ecap)
+    arow = m if col.valid is None else m & col.valid
+    live = within & take(arow, owner)
+    return torch.where(live, take(gids, owner),
+                       torch.full_like(owner, ecap))
+
+
+def _finish_set_union(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """set_union(ARRAY): the distinct elements of a group's arrays, each
+    at its first appearance."""
+    from velox_tpu_torch.functions.aggregates_collect import dedupe_first
+
+    col = big.column(spec.arg)
+    el = col.elements
+    egid = _element_groups(col, gids, m)
+    keep = dedupe_first(egid, encode_sort_key(el.values, el.valid),
+                        egid < el.capacity)
+    perm, counts, starts = collect_runs(egid, keep)
+    return _array_out(t, out_cap, group_sel, counts, starts,
+                      take(el.values, perm), take_valid(el.valid, perm),
+                      el.dictionary)
+
+
+def _finish_histogram(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """histogram(x): each distinct non-NULL value and its count, values
+    ascending."""
+    cap = gids.shape[0]
+    av, avd = cols[spec.arg]
+    pgid, pk, cnt, sel2 = _pairs(gids, av, _and_valid(m, avd), cap)
+    perm, counts, starts = collect_runs(pgid, sel2)
+    return _map_out(t, out_cap, group_sel, counts, starts,
+                    Column(t.key, take(pk, perm), None,
+                           big.column(spec.arg).dictionary),
+                    Column(t.value, take(cnt, perm), None))
+
+
+def _finish_map(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """map_agg(k, v): the first value of each non-NULL key."""
+    from velox_tpu_torch.functions.aggregates_collect import dedupe_first
+
+    kf, vf = spec.arg
+    kv, kvd = cols[kf]
+    vv, vvd = cols[vf]
+    keep = dedupe_first(gids, encode_sort_key(kv, None), _and_valid(m, kvd))
+    perm, counts, starts = collect_runs(gids, keep)
+    return _map_out(t, out_cap, group_sel, counts, starts,
+                    Column(t.key, take(kv, perm), None,
+                           big.column(kf).dictionary),
+                    Column(t.value, take(vv, perm), take_valid(vvd, perm),
+                           big.column(vf).dictionary))
+
+
+def _finish_multimap(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """multimap_agg(k, v): each distinct non-NULL key (ascending) with
+    the array of its values in row order."""
+    cap = gids.shape[0]
+    kf, vf = spec.arg
+    kv, kvd = cols[kf]
+    vv, vvd = cols[vf]
+    mm = _and_valid(m, kvd)
+    key_ops = encode_sort_key(kv, None)
+    vperm, _c, _s = collect_runs(gids, mm, key_ops)   # (group, key, row)
+    pgid, pk, cnt, sel2 = _pairs(gids, kv, mm, cap)
+    perm2, kcounts, kstarts = collect_runs(pgid, sel2,
+                                           encode_sort_key(pk, None))
+    pc = torch.where(take(sel2, perm2), take(cnt, perm2),
+                     torch.zeros_like(perm2))
+    inner = ArrayColumn(t.value, torch.cumsum(pc, 0) - pc, pc,
+                        Column(t.value.element, take(vv, vperm),
+                               take_valid(vvd, vperm),
+                               big.column(vf).dictionary), None)
+    return _map_out(t, out_cap, group_sel, kcounts, kstarts,
+                    Column(t.key, take(pk, perm2), None,
+                           big.column(kf).dictionary), inner)
+
+
+def _finish_map_union(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """map_union(MAP): the first entry of each key over a group's maps."""
+    from velox_tpu_torch.functions.aggregates_collect import dedupe_first
+
+    col = big.column(spec.arg)
+    egid = _element_groups(col, gids, m)
+    keys, vals = col.keys, col.values
+    keep = dedupe_first(egid, encode_sort_key(keys.values, None),
+                        egid < keys.capacity)
+    perm, counts, starts = collect_runs(egid, keep)
+    return _map_out(t, out_cap, group_sel, counts, starts,
+                    Column(t.key, take(keys.values, perm),
+                           take_valid(keys.valid, perm), keys.dictionary),
+                    Column(t.value, take(vals.values, perm),
+                           take_valid(vals.valid, perm), vals.dictionary))
+
+
+def _finish_map_union_sum(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """map_union_sum(MAP): each key's non-NULL values summed over a
+    group's maps, keys ascending."""
+    col = big.column(spec.arg)
+    keys, vals = col.keys, col.values
+    egid = _element_groups(col, gids, m)
+    ecap = keys.capacity
+    em = _and_valid(egid < ecap, vals.valid)
+    g2, rows2, sel2, _ = group_ids_sorted(
+        [(egid, None), (keys.values, keys.valid)], em)
+    sdt = (torch.float64 if vals.values.dtype.is_floating_point
+           else torch.int64)
+    vsum = torch.zeros(ecap + 1, dtype=sdt, device=egid.device)
+    vsum.index_add_(0, g2.clamp(max=ecap), torch.where(
+        em, vals.values.to(sdt), torch.zeros((), dtype=sdt,
+                                             device=egid.device)))
+    pgid = torch.where(sel2, take(egid, rows2), torch.full_like(egid, ecap))
+    perm, counts, starts = collect_runs(pgid, sel2)
+    pk_rows = take(rows2, perm)
+    return _map_out(t, out_cap, group_sel, counts, starts,
+                    Column(t.key, take(keys.values, pk_rows),
+                           take_valid(keys.valid, pk_rows),
+                           keys.dictionary),
+                    Column(t.value, take(vsum[:ecap], perm), None))
+
+
+_COMPLEX_FINISH = {
+    "array": _finish_array,
+    "set": _finish_array,
+    "set_union": _finish_set_union,
+    "histogram": _finish_histogram,
+    "map": _finish_map,
+    "multimap": _finish_multimap,
+    "map_union": _finish_map_union,
+    "map_union_sum": _finish_map_union_sum,
+}
 
 
 def _pad(a: torch.Tensor, n: int) -> torch.Tensor:

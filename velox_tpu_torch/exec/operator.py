@@ -16,7 +16,11 @@ import torch
 from velox_tpu_torch.types.types import RowType
 from velox_tpu_torch.expr.compiler import ExprSet
 from velox_tpu_torch.expr.ir import Expr
+from velox_tpu_torch.exec.complex_fns import and_valid
 from velox_tpu_torch.vector.batch import Batch
+from velox_tpu_torch.vector.column import (
+    ArrayColumn, Column, MapColumn, RowColumn,
+)
 
 
 class Operator:
@@ -50,14 +54,67 @@ ValuePair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
 def eval_pairs(batch: Batch) -> Dict[str, ValuePair]:
-    """Every ``(values, valid)`` pair expression evaluation can read."""
-    return {n: (c.values, c.valid) for n, c in batch.columns.items()}
+    """Every ``(values, valid)`` pair expression evaluation can read. An
+    ARRAY column gives three flat lanes (``x#start``, ``x#len`` with the
+    row validity, ``x#elemv``) and a MAP four (``x#kv``, ``x#vv`` for the
+    elements), which the compiler's ``bind_array_funcs`` targets; a ROW
+    column gives its scalar children under dotted names (``r.a``), each
+    with the row's own NULL mask ANDed in."""
+    out: Dict[str, ValuePair] = {}
+
+    def add_row(prefix: str, rc: RowColumn, parent_valid) -> None:
+        rv = and_valid(rc.valid, parent_valid)
+        for nm, kid in zip(rc.dtype.names, rc.children):
+            key = f"{prefix}.{nm}"
+            if isinstance(kid, RowColumn):
+                add_row(key, kid, rv)
+            elif isinstance(kid, Column):
+                out[key] = (kid.values, and_valid(kid.valid, rv))
+
+    for n, c in batch.columns.items():
+        if isinstance(c, (ArrayColumn, MapColumn)):
+            out[f"{n}#start"] = (c.starts, None)
+            out[f"{n}#len"] = (c.lengths, c.valid)
+            for lane, col in _lanes(c):
+                if isinstance(col, Column):
+                    out[f"{n}#{lane}"] = (col.values, col.valid)
+        elif isinstance(c, RowColumn):
+            add_row(n, c, None)
+        else:
+            out[n] = (c.values, c.valid)
+    return out
+
+
+def _lanes(c):
+    """The flat lanes of an ARRAY or MAP column, by their name suffix."""
+    if isinstance(c, MapColumn):
+        return (("kv", c.keys), ("vv", c.values))
+    return (("elemv", c.elements),)
 
 
 def eval_dicts(batch: Batch) -> Dict[str, object]:
-    """Dictionaries visible at bind time."""
-    return {n: c.dictionary for n, c in batch.columns.items()
-            if c.dictionary is not None}
+    """Dictionaries visible at bind time, those of element lanes and ROW
+    children included."""
+    out: Dict[str, object] = {}
+
+    def add_row(prefix: str, rc: RowColumn) -> None:
+        for nm, kid in zip(rc.dtype.names, rc.children):
+            key = f"{prefix}.{nm}"
+            if isinstance(kid, RowColumn):
+                add_row(key, kid)
+            elif isinstance(kid, Column) and kid.dictionary is not None:
+                out[key] = kid.dictionary
+
+    for n, c in batch.columns.items():
+        if isinstance(c, (ArrayColumn, MapColumn)):
+            for lane, col in _lanes(c):
+                if isinstance(col, Column) and col.dictionary is not None:
+                    out[f"{n}#{lane}"] = col.dictionary
+        elif isinstance(c, RowColumn):
+            add_row(n, c)
+        elif c.dictionary is not None:
+            out[n] = c.dictionary
+    return out
 
 
 def batch_ranges(batch: Batch) -> Dict[str, tuple]:
@@ -127,6 +184,12 @@ class ExprEvaluator:
     def filter_sel(self, batch: Batch) -> torch.Tensor:
         """Predicate evaluation intersected with the selection."""
         _, run = self._get(batch, "filter")
+        return run(eval_pairs(batch), batch.sel)
+
+    def evaluate(self, batch: Batch):
+        """The expressions' ``(values, valid)`` pairs (0-d for a
+        constant)."""
+        _, run = self._get(batch, "eval")
         return run(eval_pairs(batch), batch.sel)
 
     def project_pairs(self, batch: Batch):

@@ -1,8 +1,9 @@
 """Relational operators of the ported slices.
 
 The port of the JAX package's ``exec/operators.py`` for the 22 TPC-H
-queries: ``TableScanOp`` (with pushed dynamic filters), ``FilterOp``, the
-scalar part of ``ProjectOp``, ``HashAggregationOp`` (kArray and the
+queries: ``TableScanOp`` (with pushed dynamic filters), ``FilterOp``,
+``ProjectOp`` (scalar expressions, and the forms that make or read
+ARRAY, MAP and ROW columns), ``HashAggregationOp`` (kArray and the
 generic sort-based mode; SINGLE, PARTIAL and FINAL steps, adaptive
 partial aggregation, multi-argument aggregates and matrix lanes,
 single-step ``count(distinct)``), ``StreamingAggregationOp`` (SINGLE and
@@ -35,7 +36,14 @@ from velox_tpu_torch import resolve_device, torch_dtype
 from velox_tpu_torch.types import BIGINT, BOOLEAN
 from velox_tpu_torch.types.types import TypeKind, row_type
 from velox_tpu_torch.vector.batch import Batch, concat_batches, round_capacity
-from velox_tpu_torch.vector.column import Column, Dictionary
+from velox_tpu_torch.vector.column import (
+    ArrayColumn, Column, Dictionary, MapColumn, RowColumn,
+)
+from velox_tpu_torch.exec.complex_fns import (
+    and_valid, count_by, eval_lambda, evaluate_args, expand, gather_elem,
+    null_rows, offsets, pack_column, pack_rows, run_heads, sort_within_rows,
+    take, take_valid, union_codes,
+)
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
 from velox_tpu_torch.functions.aggregates import (
     _masked, init_lane, lookup_aggregate,
@@ -49,7 +57,11 @@ from velox_tpu_torch.ops.join import (
     probe_join_index_merge, probe_join_index_merge_repair, probe_join_table,
     valid_ascending_code,
 )
-from velox_tpu_torch.ops.sort import sort_indices, top_n_indices
+from velox_tpu_torch.ops.sort import (
+    lex_sort, pack_indices, sort_indices, top_n_indices,
+)
+from velox_tpu_torch.ops.sortkey import encode_sort_key
+from velox_tpu_torch.expr.ir import Call, FieldRef, Literal
 from velox_tpu_torch.plan.nodes import AggregationNode, AggStep, JoinType
 from velox_tpu_torch.utils import syncs
 
@@ -168,25 +180,498 @@ class FilterOp(Operator):
         return self.no_more_input_seen and not self._queue
 
 
+def _extract_row_path(batch: Batch, dotted: str):
+    """A column, or a dotted path into ROW columns ("r.tags"), with each
+    parent row's NULL mask ANDed into the child (velox RowVector childAt
+    and its null propagation)."""
+    if dotted in batch:
+        return batch.column(dotted)
+    parts = dotted.split(".")
+    for k in range(len(parts) - 1, 0, -1):
+        head = ".".join(parts[:k])
+        if head not in batch:
+            continue
+        col, acc = batch.column(head), None
+        for nm in parts[k:]:
+            if not isinstance(col, RowColumn):
+                break
+            acc = and_valid(acc, col.valid)
+            col = col.child(nm)
+        else:
+            if acc is not None:
+                col = dataclasses.replace(col, valid=and_valid(col.valid,
+                                                               acc))
+            return col
+    raise KeyError(f"no column or row subfield {dotted!r} in batch")
+
+
+#: call names ProjectOp runs itself, each by its ``_apply_*`` form
+_PROJECT_FORMS = {
+    "transform": "transform", "sequence": "sequence", "repeat": "sequence",
+    "slice": "slice", "array_sort": "reorder", "array_distinct": "reorder",
+    "transform_values": "map_lambda", "map_filter": "map_lambda",
+    "transform_keys": "map_lambda", "zip_with": "array_combo",
+    "array_concat": "array_combo", "array_reverse": "array_combo",
+    "filter": "array_filter", "map_concat": "map_concat",
+    "split": "split", "regexp_split": "split",
+    "regexp_extract_all": "split", "array_intersect": "setop",
+    "array_except": "setop", "array_union": "setop",
+    "arrays_overlap": "setop", "map_keys": "map_proj",
+    "map_values": "map_proj", "row_constructor": "row",
+    "map_entries": "map_entries", "zip": "zip",
+}
+
+_COMPLEX_KINDS = (TypeKind.ARRAY, TypeKind.MAP, TypeKind.ROW)
+
+
 class ProjectOp(Operator):
-    """velox/exec/FilterProject.cpp, project half (scalar expressions)."""
+    """velox/exec/FilterProject.cpp, project half. Scalar expressions run
+    through one ``ExprEvaluator``; a projection that makes or passes an
+    ARRAY, MAP or ROW column runs its own form: a pass-through (offsets
+    and shared elements move as they are), a lambda over the flat
+    element lanes (``transform``, ``filter``, the map lambdas,
+    ``zip_with``), an expansion with one host read of the element total
+    and flat sorts and packs (``array_sort``, the set operations,
+    ``map_concat``, ``sequence``, ``split``), or an applier of
+    ``exec/complex_fns.py``."""
 
     def __init__(self, node):
+        from velox_tpu_torch.exec.complex_fns import EXT_APPLIERS
+
         super().__init__(node)
-        for t in node.output_type.children:
-            if t.kind in (TypeKind.ARRAY, TypeKind.MAP, TypeKind.ROW):
-                raise NotImplementedError(
-                    f"projection of {t} columns is not ported yet")
-        self._eval = ExprEvaluator(list(node.exprs), node.source.output_type)
+        types = dict(zip(node.names, node.output_type.children))
+        self._types = types
+        #: output name -> (form, expression) for every non-scalar form
+        self._forms: Dict[str, tuple] = {}
+        scalar = []
+        for name, e in zip(node.names, node.exprs):
+            t = types[name]
+            form = None
+            if isinstance(e, FieldRef) and t.kind in _COMPLEX_KINDS:
+                form = "pass"          # a column or a ROW subfield path
+            elif isinstance(e, Call) and e.name in _PROJECT_FORMS:
+                form = _PROJECT_FORMS[e.name]
+            elif isinstance(e, Call) and e.name in EXT_APPLIERS:
+                form = "ext"
+            if form is None:
+                scalar.append((name, e))
+                continue
+            self._forms[name] = (form, e)
+            if form == "row":
+                # scalar fields evaluate with the rest as "name#fi"
+                for i, (ct, a) in enumerate(zip(t.children, e.args)):
+                    if ct.kind not in _COMPLEX_KINDS:
+                        scalar.append((f"{name}#f{i}", a))
+        self._scalar_names = [n for n, _ in scalar]
+        self._eval = ExprEvaluator([e for _, e in scalar],
+                                   node.source.output_type)
         self._queue: collections.deque = collections.deque()
 
     def add_input(self, batch: Batch) -> None:
-        pairs, dicts = self._eval.project_pairs(batch)
+        from velox_tpu_torch.exec.complex_fns import EXT_APPLIERS
+
+        by_name = {}
+        if self._scalar_names:
+            pairs, dicts = self._eval.project_pairs(batch)
+            by_name = dict(zip(self._scalar_names, zip(pairs, dicts)))
         cols = {}
-        for name, t, (vals, valid), d in zip(
-                self.node.names, self.output_type.children, pairs, dicts):
-            cols[name] = Column(t, vals, valid, d)
+        for name in self.node.names:
+            t = self._types[name]
+            if name not in self._forms:
+                (vals, valid), d = by_name[name]
+                cols[name] = Column(t, vals, valid, d)
+                continue
+            form, e = self._forms[name]
+            if form == "pass":
+                cols[name] = _extract_row_path(batch, e.name)
+            elif form == "ext":
+                cols[name] = EXT_APPLIERS[e.name](self, batch, e, t)
+            elif form == "row":
+                cols[name] = self._make_row(batch, e, t, name, by_name)
+            else:
+                cols[name] = getattr(self, f"_apply_{form}")(batch, e, t)
         self._queue.append(Batch(cols, batch.sel, batch.num_rows))
+
+    # ------------------------------------------------------------ forms
+    def _apply_transform(self, batch, e, out_t):
+        """transform(a, x -> body): the body over the flat element lane,
+        offsets shared (ArrayFunctions transform)."""
+        src = batch.column(e.args[0].name)
+        lam = e.args[1]
+        (vals, valid), d = eval_lambda(batch, lam,
+                                       [(lam.params[0], src.elements)], src)
+        return ArrayColumn(out_t, src.starts, src.lengths,
+                           Column(out_t.element, vals, valid, d), src.valid)
+
+    #: at most this many entries a row (Presto caps sequence)
+    _MAX_SEQ = 10_000
+
+    def _apply_sequence(self, batch, e, out_t):
+        """sequence(lo, hi) and repeat(value, n): generated arrays, one
+        host read of the element total (Sequence.h)."""
+        (lo, lov), (hi, hiv) = evaluate_args(batch, e.args)
+        is_repeat = e.name == "repeat"
+        valid = and_valid(batch.sel, hiv)
+        if not is_repeat:
+            valid = and_valid(valid, lov)
+        n = hi if is_repeat else hi - lo + 1
+        lens = torch.where(valid, n.to(torch.int64).clamp(0, self._MAX_SEQ),
+                           torch.zeros((), dtype=torch.int64,
+                                       device=batch.device))
+        ex = expand(torch.zeros_like(lens), lens, batch.sel)
+        base = take(lo, ex.row_of)
+        if is_repeat:
+            elem = Column(e.args[0].dtype, base, take_valid(lov, ex.row_of))
+        else:
+            elem = Column(BIGINT, base.to(torch.int64) + ex.ordinal)
+        row_valid = (valid if (lov is not None and not is_repeat)
+                     or hiv is not None else None)
+        return ArrayColumn(out_t, ex.nst, lens, elem, row_valid)
+
+    def _apply_slice(self, batch, e, out_t):
+        """slice(a, start, length): 1-based start, negative from the end;
+        offsets only."""
+        src = batch.column(e.args[0].name)
+        (sv, _), (lv, _) = evaluate_args(batch, e.args[1:])
+        ln = src.lengths.to(torch.int64)
+        sv = sv.to(torch.int64)
+        off = torch.where(sv < 0, ln + sv, sv - 1)
+        off = torch.minimum(off.clamp(min=0), ln)
+        new_len = torch.minimum(lv.to(torch.int64).clamp(min=0), ln - off)
+        return ArrayColumn(out_t, src.starts + off, new_len, src.elements,
+                           src.valid)
+
+    def _apply_reorder(self, batch, e, out_t):
+        """array_sort / array_distinct (ArraySort.cpp, ArrayDistinct.cpp):
+        the elements sorted within each row; distinct keeps the first of
+        each equal run, back in arrival order."""
+        src = batch.column(e.args[0].name)
+        ex = expand(src.starts, src.lengths, batch.sel)
+        ev, evd = gather_elem(src.elements, ex.src_idx)
+        vops = encode_sort_key(ev, evd)
+        perm, srow = sort_within_rows(ex, vops)
+        dic = src.elements.dictionary
+        if e.name == "array_sort":
+            return ArrayColumn(out_t, ex.nst, ex.lens, Column(
+                out_t.element, take(ev, perm), take_valid(evd, perm), dic),
+                src.valid)
+        keep_sorted = run_heads([srow] + [take(k, perm) for k in vops]) \
+            & (srow < ex.ecap)
+        keep = torch.zeros_like(keep_sorted)
+        keep[perm] = keep_sorted
+        # slots are already in (row, arrival) order: pack the kept ones
+        pperm, nst, kcnt = pack_rows(ex, keep, batch.capacity)
+        return ArrayColumn(out_t, nst, kcnt, Column(
+            out_t.element, take(ev, pperm), take_valid(evd, pperm), dic),
+            src.valid)
+
+    def _apply_map_lambda(self, batch, e, out_t):
+        """transform_values / transform_keys / map_filter (MapFunctions.h):
+        the lambda over the flat entry lanes; map_filter packs the kept
+        entries. transform_keys does not check the new keys for
+        duplicates (the JAX package's form)."""
+        from velox_tpu_torch.exec.collect_agg import element_owners
+
+        src = batch.column(e.args[0].name)
+        lam = e.args[1]
+        kp, vp = lam.params
+        (vals, valid), d = eval_lambda(
+            batch, lam, [(kp, src.keys), (vp, src.values)], src)
+        if e.name == "transform_values":
+            return MapColumn(out_t, src.starts, src.lengths, src.keys,
+                             Column(out_t.value, vals, valid, d), src.valid)
+        if e.name == "transform_keys":
+            return MapColumn(out_t, src.starts, src.lengths,
+                             Column(out_t.key, vals, valid, d), src.values,
+                             src.valid)
+        owner, within = element_owners(src.starts, src.lengths,
+                                       src.keys.capacity)
+        keep = and_valid(within & vals, valid)     # a NULL drops
+        kcnt = count_by(owner, keep, batch.capacity)
+        perm = pack_indices(keep, src.keys.capacity)
+        return MapColumn(out_t, offsets(kcnt), kcnt,
+                         pack_column(src.keys, perm),
+                         pack_column(src.values, perm), src.valid)
+
+    def _apply_array_combo(self, batch, e, out_t):
+        """zip_with(a, b, (x, y) -> body), array_concat(a, b),
+        array_reverse(a) (ZipWith.h, ArrayConcat, reverse)."""
+        srcs = [batch.column(a.name) for a in e.args
+                if isinstance(a, FieldRef)]
+        if e.name == "array_reverse":
+            from velox_tpu_torch.exec.collect_agg import element_owners
+
+            src = srcs[0]
+            ecap = src.elements.capacity
+            owner, within = element_owners(src.starts, src.lengths, ecap)
+            st = take(src.starts, owner).to(torch.int64)
+            ln = take(src.lengths, owner).to(torch.int64)
+            p = torch.arange(ecap, device=st.device)
+            idx = torch.where(within, 2 * st + ln - 1 - p, p)
+            return ArrayColumn(out_t, src.starts, src.lengths,
+                               pack_column(src.elements, idx), src.valid)
+        ca, cb = srcs
+        if (ca.elements.dictionary is not None
+                and ca.elements.dictionary is not cb.elements.dictionary
+                and e.name == "array_concat"):
+            raise NotImplementedError(
+                f"{e.name}: string arrays must share a dictionary")
+        nv = null_rows([ca, cb])
+        live = and_valid(batch.sel, nv)
+        zero = torch.zeros((), dtype=torch.int64, device=batch.device)
+        la = torch.where(live, ca.lengths.to(torch.int64), zero)
+        lb = torch.where(live, cb.lengths.to(torch.int64), zero)
+        lens = la + lb if e.name == "array_concat" else torch.maximum(la, lb)
+        ex = expand(torch.zeros_like(lens), lens, live)
+        ra, rb = take(la, ex.row_of), take(lb, ex.row_of)
+
+        def gather(col, ord_, in_b):
+            v, vd = gather_elem(col.elements,
+                                take(col.starts, ex.row_of) + ord_)
+            return v, and_valid(in_b, vd)
+
+        if e.name == "array_concat":
+            from_a = ex.ordinal < ra
+            av, avd = gather(ca, ex.ordinal, from_a)
+            bv, bvd = gather(cb, ex.ordinal - ra, ~from_a)
+            valid = (None if ca.elements.valid is None
+                     and cb.elements.valid is None
+                     else torch.where(from_a, avd, bvd))
+            return ArrayColumn(out_t, ex.nst, lens, Column(
+                out_t.element, torch.where(from_a, av, bv), valid,
+                ca.elements.dictionary), nv)
+        av, avd = gather(ca, ex.ordinal, ex.ordinal < ra)
+        bv, bvd = gather(cb, ex.ordinal, ex.ordinal < rb)
+        lam = e.args[2]
+        xp, yp = lam.params
+        (vals, valid), d = eval_lambda(batch, lam, [
+            (xp, Column(ca.dtype.element, av, avd, ca.elements.dictionary)),
+            (yp, Column(cb.dtype.element, bv, bvd, cb.elements.dictionary))],
+            ex.row_of, ex.in_run)
+        return ArrayColumn(out_t, ex.nst, lens,
+                           Column(out_t.element, vals, valid, d), nv)
+
+    def _apply_array_filter(self, batch, e, out_t):
+        """filter(a, x -> pred): the kept elements packed, offsets
+        rebuilt; a NULL predicate drops."""
+        from velox_tpu_torch.exec.collect_agg import element_owners
+
+        src = batch.column(e.args[0].name)
+        lam = e.args[1]
+        ecap = src.elements.capacity
+        owner, within = element_owners(src.starts, src.lengths, ecap)
+        (pred, pvalid), _ = eval_lambda(
+            batch, lam, [(lam.params[0], src.elements)], owner, within)
+        keep = and_valid(within & pred, pvalid)
+        kcnt = count_by(owner, keep, batch.capacity)
+        perm = pack_indices(keep, ecap)
+        return ArrayColumn(out_t, offsets(kcnt), kcnt,
+                           pack_column(src.elements, perm), src.valid)
+
+    def _apply_map_concat(self, batch, e, out_t):
+        """map_concat(m1, m2) (MapConcat.cpp): both entry runs sorted by
+        (row, key, side); the last entry of each (row, key) run wins, so
+        the later map overrides."""
+        ca = batch.column(e.args[0].name)
+        cb = batch.column(e.args[1].name)
+        kdic, ka_codes, kb_codes = union_codes(ca.keys, cb.keys)
+        vdic, va_codes, vb_codes = union_codes(ca.values, cb.values)
+        cap = batch.capacity
+        nv = null_rows([ca, cb])
+        live = and_valid(batch.sel, nv)
+        parts = []
+        for col, kc, vc in ((ca, ka_codes, va_codes),
+                            (cb, kb_codes, vb_codes)):
+            ex = expand(col.starts, col.lengths, live)
+            vd = take_valid(col.values.valid, ex.src_idx)
+            parts.append((ex, take(kc, ex.src_idx), take(vc, ex.src_idx),
+                          vd))
+        (ea, ka, va, vda), (eb, kb, vb, vdb) = parts
+        row_of = torch.cat([ea.row_of, eb.row_of])
+        in_run = torch.cat([ea.in_run, eb.in_run])
+        kv = torch.cat([ka, kb])
+        vv = torch.cat([va, vb])
+        vvd = (None if vda is None and vdb is None else torch.cat([
+            vda if vda is not None else torch.ones_like(ea.in_run),
+            vdb if vdb is not None else torch.ones_like(eb.in_run)]))
+        tag = torch.cat([torch.zeros_like(ea.row_of),
+                         torch.ones_like(eb.row_of)])
+        row_key = torch.where(in_run, row_of, torch.full_like(row_of, cap))
+        kops = encode_sort_key(kv, None)
+        sperm = lex_sort([row_key, *kops, tag])
+        srow = take(row_key, sperm)
+        diff = run_heads([srow] + [take(k, sperm) for k in kops])
+        nxt = torch.cat([diff[1:], diff[:1] | True])    # a run's last wins
+        keep_sorted = nxt & (srow < cap)
+        perm = take(sperm, pack_indices(keep_sorted, kv.shape[0]))
+        kcnt = count_by(srow, keep_sorted, cap)
+        return MapColumn(out_t, offsets(kcnt), kcnt,
+                         Column(out_t.key, take(kv, perm), None, kdic),
+                         Column(out_t.value, take(vv, perm),
+                                take_valid(vvd, perm), vdic), nv)
+
+    def _apply_split(self, batch, e, out_t):
+        """split(s, delim [, limit]), regexp_split, regexp_extract_all
+        (SplitFunctions.cpp): each DISTINCT string is split once on the
+        host; the device gathers from the piece tables after one
+        expansion."""
+        src = batch.column(e.args[0].name)
+        d = src.dictionary
+        if d is None or not all(isinstance(a, Literal) for a in e.args[1:]):
+            raise TypeError(f"{e.name} needs a dictionary column and "
+                            "literal arguments")
+        delim = e.args[1].value
+        if e.name == "split":
+            limit = int(e.args[2].value) if len(e.args) > 2 else None
+            pieces = [str(v).split(delim) if limit is None
+                      else str(v).split(delim, limit - 1) for v in d.values]
+        else:
+            import re
+
+            from velox_tpu_torch.functions.hostfns import _java_regex
+
+            rx = re.compile(_java_regex(delim))
+            if e.name == "regexp_split":
+                pieces = [rx.split(str(v)) for v in d.values]
+            else:
+                grp = int(e.args[2].value) if len(e.args) > 2 else 0
+                pieces = [[m.group(grp) or "" for m in rx.finditer(str(v))]
+                          for v in d.values]
+        nd = Dictionary(sorted({p for ps in pieces for p in ps}))
+        lens_t = np.zeros(len(d) + 1, np.int64)
+        starts_t = np.zeros(len(d) + 1, np.int64)
+        flat: list = []
+        for i, ps in enumerate(pieces):
+            starts_t[i + 1] = len(flat)
+            lens_t[i + 1] = len(ps)
+            flat.extend(nd.code_of(x) for x in ps)
+        dev = batch.device
+        code1 = src.values.to(torch.int64) + 1
+        lens = take(torch.from_numpy(lens_t).to(dev), code1)
+        ex = expand(torch.zeros_like(lens), lens,
+                    and_valid(batch.sel, src.valid))
+        src_idx = take(torch.from_numpy(starts_t).to(dev),
+                       take(code1, ex.row_of)) + ex.ordinal
+        flat_t = torch.tensor(flat or [0], dtype=torch.int32, device=dev)
+        return ArrayColumn(out_t, ex.nst, ex.lens, Column(
+            out_t.element, take(flat_t, src_idx), None, nd), src.valid)
+
+    def _apply_setop(self, batch, e, out_t):
+        """array_intersect / array_except / array_union / arrays_overlap
+        (ArrayIntersectExcept.cpp, ArraysOverlapFunction.h): both arrays'
+        elements in one tagged table sorted by (row, value, side,
+        ordinal); each (row, value) run's head decides membership, and
+        the kept elements leave in (side, ordinal) order."""
+        ca = batch.column(e.args[0].name)
+        cb = batch.column(e.args[1].name)
+        if (ca.elements.dictionary is not None
+                and ca.elements.dictionary is not cb.elements.dictionary):
+            raise NotImplementedError(
+                f"{e.name}: string arrays must share a dictionary")
+        cap = batch.capacity
+        nv = null_rows([ca, cb])
+        live = and_valid(batch.sel, nv)
+        exs = [expand(c.starts, c.lengths, live) for c in (ca, cb)]
+        evs = [gather_elem(c.elements, x.src_idx) for c, x in zip((ca, cb),
+                                                                  exs)]
+        row_of = torch.cat([x.row_of for x in exs])
+        ordinal = torch.cat([x.ordinal for x in exs])
+        in_run = torch.cat([x.in_run for x in exs])
+        ev = torch.cat([v for v, _ in evs])
+        evd = (None if all(vd is None for _, vd in evs) else torch.cat([
+            vd if vd is not None else torch.ones_like(x.in_run)
+            for (_, vd), x in zip(evs, exs)]))
+        tag = torch.cat([torch.zeros_like(exs[0].row_of),
+                         torch.ones_like(exs[1].row_of)])
+        row_key = torch.where(in_run, row_of, torch.full_like(row_of, cap))
+        vops = encode_sort_key(ev, evd)
+        sperm = lex_sort([row_key, *vops, tag, ordinal])
+        srow = take(row_key, sperm)
+        stag = take(tag, sperm)
+        n = ev.shape[0]
+        diff = run_heads([srow] + [take(k, sperm) for k in vops])
+        rid = torch.cumsum(diff.to(torch.int64), 0) - 1
+        slive = srow < cap
+        spare = torch.full_like(rid, n)
+
+        def run_has(flag):
+            out = torch.zeros(n + 1, dtype=torch.int64, device=rid.device)
+            out.index_add_(0, torch.where(slive, rid, spare),
+                           flag.to(torch.int64))
+            return take(out[:n] > 0, rid)
+
+        has_a, has_b = run_has(stag == 0), run_has(stag == 1)
+        heads = diff & slive
+        if e.name == "arrays_overlap":
+            return Column(BOOLEAN, count_by(srow, heads & has_a & has_b,
+                                            cap) > 0, nv)
+        if e.name == "array_intersect":
+            keep_sorted = heads & (stag == 0) & has_b
+        elif e.name == "array_except":
+            keep_sorted = heads & (stag == 0) & ~has_b
+        else:
+            keep_sorted = heads
+        keep = torch.zeros_like(keep_sorted)
+        keep[sperm] = keep_sorted
+        kcnt = count_by(row_of, keep, cap)
+        row_key2 = torch.where(keep, row_of, torch.full_like(row_of, cap))
+        perm2 = lex_sort([row_key2, tag, ordinal])
+        return ArrayColumn(out_t, offsets(kcnt), kcnt, Column(
+            out_t.element, take(ev, perm2), take_valid(evd, perm2),
+            ca.elements.dictionary), nv)
+
+    def _apply_map_proj(self, batch, e, out_t):
+        """map_keys / map_values: an ARRAY sharing the map's offsets."""
+        src = batch.column(e.args[0].name)
+        return ArrayColumn(out_t, src.starts, src.lengths,
+                           src.keys if e.name == "map_keys" else src.values,
+                           src.valid)
+
+    def _make_row(self, batch, e, rt, name, by_name):
+        """row_constructor(...) (velox RowConstructor): scalar fields from
+        the shared evaluation's "name#fi" lanes, complex fields passed by
+        reference; the row itself is never NULL."""
+        kids = []
+        for i, (ct, a) in enumerate(zip(rt.children, e.args)):
+            if ct.kind in _COMPLEX_KINDS:
+                if not isinstance(a, FieldRef):
+                    raise TypeError("row_constructor: complex fields must "
+                                    "be column references")
+                kids.append(_extract_row_path(batch, a.name))
+            else:
+                (vals, valid), d = by_name[f"{name}#f{i}"]
+                kids.append(Column(ct, vals, valid, d))
+        return RowColumn(rt, tuple(kids), None)
+
+    def _apply_map_entries(self, batch, e, out_t):
+        """map_entries(m) -> ARRAY(ROW(key, value)) sharing the map's
+        offsets and lanes (MapEntries.cpp)."""
+        src = batch.column(e.args[0].name)
+        return ArrayColumn(out_t, src.starts, src.lengths, RowColumn(
+            out_t.element, (src.keys, src.values), None), src.valid)
+
+    def _apply_zip(self, batch, e, out_t):
+        """zip(a, b, ...) -> ARRAY(ROW(...)) (Zip.cpp:32-41): as long as
+        the longest input, shorter inputs give NULL fields."""
+        srcs = [batch.column(a.name) for a in e.args]
+        nv = null_rows(srcs)
+        live = and_valid(batch.sel, nv)
+        zero = torch.zeros((), dtype=torch.int64, device=batch.device)
+        lens_in = [torch.where(live, c.lengths.to(torch.int64), zero)
+                   for c in srcs]
+        lens = lens_in[0]
+        for ln in lens_in[1:]:
+            lens = torch.maximum(lens, ln)
+        ex = expand(torch.zeros_like(lens), lens, live)
+        kids = []
+        for c, li, ct in zip(srcs, lens_in, out_t.element.children):
+            v, vd = gather_elem(c.elements,
+                                take(c.starts, ex.row_of) + ex.ordinal)
+            kids.append(Column(ct, v, and_valid(
+                ex.ordinal < take(li, ex.row_of), vd),
+                c.elements.dictionary))
+        return ArrayColumn(out_t, ex.nst, lens,
+                           RowColumn(out_t.element, tuple(kids), None), nv)
 
     def get_output(self) -> Optional[Batch]:
         return self._queue.popleft() if self._queue else None
@@ -226,12 +711,12 @@ class HashAggregationOp(Operator):
     as its own group.
 
     A SINGLE step with a collect aggregate (``approx_percentile``,
-    ``tdigest_agg``, ``approx_set``, ...) takes the collect mode instead:
-    it buffers its input batches and runs ``exec/collect_agg.finish_collect``
-    once over their concatenation. In PARTIAL and FINAL steps
-    ``approx_percentile`` runs its digest lanes; the other collect
-    aggregates raise there, and the ARRAY/MAP-valued kinds raise in every
-    step until the complex types are ported.
+    ``tdigest_agg``, ``approx_set``, ``array_agg``, ``map_agg``, ...)
+    takes the collect mode instead: it buffers its input batches and runs
+    ``exec/collect_agg.finish_collect`` once over their concatenation. In
+    PARTIAL and FINAL steps ``approx_percentile`` runs its digest lanes;
+    the other collect aggregates raise there, and the ARRAY/MAP kinds of
+    ROADMAP A.2's slice 12 raise in every step.
     """
 
     blocking = True
@@ -324,14 +809,19 @@ class HashAggregationOp(Operator):
         digest) runs the lane machinery, and the others raise as the
         reference's do."""
         from velox_tpu_torch.functions.aggregates_collect import (
-            COMPLEX_KINDS,
+            COMPLEX_KINDS, WAITING_KINDS,
         )
 
         for spec, fn in zip(self.specs, self.fns):
-            if fn.collect_kind in COMPLEX_KINDS:
+            if fn.collect_kind in WAITING_KINDS:
                 raise NotImplementedError(
-                    f"{spec.fn}: ARRAY/MAP-valued collect aggregates wait "
-                    "for the complex types (ROADMAP queue item 6)")
+                    f"{spec.fn} is not ported: it waits for ROADMAP A.2 "
+                    "(slice 12)")
+            if (fn.collect_kind in COMPLEX_KINDS
+                    and self.step != AggStep.SINGLE):
+                raise NotImplementedError(
+                    f"{spec.fn}: the PARTIAL page form of the ARRAY/MAP "
+                    "collect aggregates waits for ROADMAP A.2 (slice 12)")
         if self.step != AggStep.SINGLE:
             if any(f.collect_kind is not None and not f.lanes
                    for f in self.fns):

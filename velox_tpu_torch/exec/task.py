@@ -28,7 +28,7 @@ from velox_tpu_torch.exec.operators import (
 from velox_tpu_torch.exec.window_ops import (
     ExpandOp, GroupIdOp, LocalMergeOp, MarkDistinctOp, RowNumberOp,
     StreamingWindowOp, TopNRowNumberOp, UnionAllOp, UnionBridge,
-    UnionSinkOp, WindowOp,
+    UnionSinkOp, UnnestOp, WindowOp,
 )
 from velox_tpu_torch.plan.nodes import (
     AggregationNode, AssignUniqueIdNode, CrossJoinNode, EnforceSingleRowNode,
@@ -36,7 +36,7 @@ from velox_tpu_torch.plan.nodes import (
     LocalMergeNode, MarkDistinctNode, MergeJoinNode, OrderByNode, PlanNode,
     ProjectNode, RowNumberNode, StreamingAggregationNode,
     StreamingWindowNode, TableScanNode, TopNNode, TopNRowNumberNode,
-    UnionAllNode, ValuesNode, WindowNode,
+    UnionAllNode, UnnestNode, ValuesNode, WindowNode,
 )
 
 _SIMPLE_OPERATORS = {
@@ -56,6 +56,7 @@ _SIMPLE_OPERATORS = {
     MarkDistinctNode: MarkDistinctOp,
     ExpandNode: ExpandOp,
     GroupIdNode: GroupIdOp,
+    UnnestNode: UnnestOp,
 }
 
 #: join types whose probe can push a build-side filter into its scan:

@@ -1,12 +1,14 @@
 """Window-family operators: Window, StreamingWindow, RowNumber,
-TopNRowNumber, MarkDistinct, Expand, GroupId, and the union operators.
+TopNRowNumber, MarkDistinct, Expand, GroupId, Unnest, and the union
+operators.
 
 The port of ``velox_tpu/exec/window_ops.py``. Window (velox/exec/Window.h)
 keeps the sort-once design (``ops/window.py``): one stable sort by
 (partition, order) keys, boundary masks, scans and gathers, then a
 scatter back to arrival order. Blocking operators buffer their input in
 a plain list, as the port's other blocking operators do (no spill yet).
-Unnest, LocalPartition and TableWrite are not ported.
+``UnnestOp`` explodes ARRAY columns. LocalPartition and TableWrite are
+not ported.
 """
 
 from __future__ import annotations
@@ -24,12 +26,12 @@ from velox_tpu_torch.vector.batch import (
 from velox_tpu_torch.vector.column import Column
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
 from velox_tpu_torch.exec.operators import _cols_of
-from velox_tpu_torch.ops.groupby import group_ids_sorted, segment_scan
+from velox_tpu_torch.ops.groupby import group_ids_sorted
 from velox_tpu_torch.ops.sort import pack_indices, sort_indices
 from velox_tpu_torch.ops.sortkey import encode_sort_key
 from velox_tpu_torch.ops.window import (
-    ranks, row_numbers, segment_ends, segment_starts, segmented_cumsum,
-    segmented_scan,
+    range_minmax, range_sum, ranks, row_numbers, run_owners, segment_ends,
+    segment_starts, segmented_cumsum, segmented_scan,
 )
 from velox_tpu_torch.utils import syncs
 
@@ -58,32 +60,6 @@ def _part_bsearch(sv, lo0, hi0, target, side: str) -> torch.Tensor:
         lo = torch.where(cont & p, mid + 1, lo)
         hi = torch.where(cont & ~p, mid, hi)
     return lo
-
-
-def _frame_minmax(v, start, end, op: str, ident, max_len: int):
-    """Reduce [start, end) frames with a sparse table, level by level:
-    level j holds op over [i, i + 2^j), and a frame of length L reads
-    level floor(log2 L) twice (overlapping; min and max are idempotent).
-    Only one level is alive at a time, and the levels stop at the longest
-    frame ``max_len`` (a host-known bound)."""
-    comb = torch.minimum if op == "min" else torch.maximum
-    cap = v.shape[0]
-    length = (end - start).clamp(min=0)
-    res = torch.full_like(v, ident)
-    t = v
-    w = 1
-    while True:
-        use = (length >= w) & (length < 2 * w)
-        cand = comb(_take(t, start), _take(t, end - w))
-        res = torch.where(use, cand, res)
-        if 2 * w > max_len or w >= cap:
-            break
-        shifted = torch.cat([t[w:], torch.full((min(w, cap),), ident,
-                                               dtype=t.dtype,
-                                               device=t.device)])[:cap]
-        t = comb(t, shifted)
-        w <<= 1
-    return res
 
 
 def _changes(sorted_cols, cap: int, device) -> torch.Tensor:
@@ -267,17 +243,11 @@ class WindowOp(Operator):
             big, small = _extremes(sv.dtype)
             ident = big if fn == "min" else small
             v = torch.where(m, sv, torch.full_like(sv, ident))
-            return _frame_minmax(v, start, end, fn, ident, max_len), c_at > 0
+            return range_minmax(v, start, end, fn, ident, max_len), c_at > 0
         if sv.dtype.is_floating_point:
-            # per-partition prefixes: a table-wide float prefix grows far
-            # past a frame's own sum and loses its low digits
-            v = torch.where(m, sv, torch.zeros_like(sv)).to(torch.float64)
-            pp = segment_scan(v, ctx["part_change"], "add")
-            upto = _take(pp, end - 1)
-            before = torch.where(start > ctx["part_start"],
-                                 _take(pp, start - 1), torch.zeros_like(upto))
-            s_at = torch.where(end > start, upto - before,
-                               torch.zeros_like(upto))
+            s_at = range_sum(
+                torch.where(m, sv, torch.zeros_like(sv)).to(torch.float64),
+                start, end, max_len)
         else:
             ps = _prefix(torch.where(m, sv, torch.zeros_like(sv))
                          .to(torch.int64))
@@ -694,3 +664,73 @@ class LocalMergeOp(Operator):
 
     def is_finished(self) -> bool:
         return self.no_more_input_seen and self._emitted
+
+
+class UnnestOp(Operator):
+    """velox/exec/Unnest.h:25: one row per element of the ARRAY columns,
+    the other columns replicated.
+
+    No loop over rows: each input row marks its first output slot (the
+    exclusive running sum of the lengths), and a prefix sum of the marks
+    numbers each output slot's row (``ops/window.py`` ``run_owners``). With several columns a row gives as many rows as its
+    longest array and the shorter ones pad with NULLs
+    (velox/exec/Unnest.cpp:119); a NULL or empty array gives none. The
+    output capacity is the elements' capacities summed, so no host read
+    is needed."""
+
+    def __init__(self, node):
+        super().__init__(node)
+        self._queue: collections.deque = collections.deque()
+
+    def add_input(self, batch: Batch) -> None:
+        from velox_tpu_torch.vector.column import ArrayColumn
+
+        node = self.node
+        acols = [batch.column(n) for n in node.unnest]
+        for n, a in zip(node.unnest, acols):
+            if not isinstance(a, ArrayColumn) or not isinstance(
+                    a.elements, Column):
+                raise NotImplementedError(
+                    f"unnest of {n}: only ARRAY columns of flat elements")
+        outcap = round_capacity(sum(a.elements.capacity for a in acols))
+        dev = batch.device
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        lens = None
+        for a in acols:
+            ln = torch.where(batch.sel & a.validity(),
+                             a.lengths.to(torch.int64), zero)
+            lens = ln if lens is None else torch.maximum(lens, ln)
+        out_pos = torch.cumsum(lens, 0) - lens
+        total = out_pos[-1] + lens[-1]
+        row_of = run_owners(out_pos, lens > 0, outcap).clamp(min=0)
+        slot = torch.arange(outcap, dtype=torch.int64, device=dev)
+        out_sel = slot < total
+        rank = slot - _take(out_pos, row_of)
+        types = dict(zip(self.output_type.names, self.output_type.children))
+        cols = {}
+        for n in node.replicated:
+            src = batch.column(n)
+            g = src.gather(row_of)
+            cols[n] = (Column(types[n], g.values, g.valid, src.dictionary,
+                              src.stats) if isinstance(src, Column) else g)
+        for n, a in zip(node.unnest, acols):
+            el = a.elements
+            eidx = _take(a.starts, row_of).to(torch.int64) + rank
+            valid = rank < _take(a.lengths, row_of).to(torch.int64)
+            if el.valid is not None:
+                valid = valid & _take(el.valid, eidx)
+            # one column of non-NULL elements: every selected row is in
+            # range, so the mask adds nothing to the selection
+            if len(acols) == 1 and el.valid is None:
+                valid = None
+            cols[n] = Column(types[n], _take(el.values, eidx), valid,
+                             el.dictionary)
+        if node.ordinality is not None:
+            cols[node.ordinality] = Column(BIGINT, rank + 1)
+        self._queue.append(Batch(cols, out_sel))
+
+    def get_output(self) -> Optional[Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return self.no_more_input_seen and not self._queue

@@ -38,6 +38,7 @@ import datetime
 import functools
 import os
 import re
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,9 +50,12 @@ from velox_tpu_torch.types import (
     BIGINT, BOOLEAN, DATE, DOUBLE, DataType, INTEGER, TIMESTAMP, VARCHAR,
 )
 from velox_tpu_torch.types.types import (
-    DecimalType, RowType, TypeKind, common_numeric_type,
+    ArrayType, DecimalType, MapType, RowType, TypeKind, array,
+    common_numeric_type, map_, row_type,
 )
-from velox_tpu_torch.expr.ir import Call, Cast, Expr, FieldRef, Literal, TryExpr
+from velox_tpu_torch.expr.ir import (
+    Call, Cast, Expr, FieldRef, Lambda, Literal, TryExpr,
+)
 from velox_tpu_torch.functions.registry import lookup_function
 from velox_tpu_torch.functions.scalar import DeviceTable
 
@@ -126,7 +130,15 @@ _RANGE_COMPARE = {"lt", "lte", "gt", "gte"}
 def resolve_types(expr: Expr, schema: RowType) -> Expr:
     """Bind field types, resolve result types, insert implicit casts."""
     if isinstance(expr, FieldRef):
-        return FieldRef(schema.find_child(expr.name), expr.name)
+        try:
+            return FieldRef(schema.find_child(expr.name), expr.name)
+        except KeyError:
+            # a dotted subfield of a ROW column ("r.a"): the evaluation
+            # reads the child lane under the same dotted name
+            t = _navigate_row_field(schema, expr.name)
+            if t is None:
+                raise
+            return FieldRef(t, expr.name)
 
     if isinstance(expr, Literal):
         if expr.dtype is not None:
@@ -142,13 +154,20 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
         return TryExpr(child.dtype, child)
 
     if isinstance(expr, Call):
+        if expr.name in _HIGHER_ORDER_FUNCS:
+            return _resolve_higher_order(expr, schema)
         if expr.name in _COMPARE or expr.name in (
                 "between", "is_null", "is_not_null"):
             wide = _resolve_wide_compare(expr, schema)
             if wide is not None:
                 return wide
+        if expr.name in ("dot_product", "l2_squared", "l2_norm"):
+            return resolve_types(_vector_math(expr), schema)
         args = tuple(resolve_types(a, schema) for a in expr.args)
         name = expr.name
+        complex_ = _resolve_complex_call(name, args)
+        if complex_ is not None:
+            return complex_
         string = _resolve_string_call(name, args)
         if string is not None:
             return string
@@ -309,11 +328,494 @@ _DAY_PART_FNS = {
 _TIME_PART_FNS = {"hour", "minute", "second", "millisecond"}
 
 
+def _navigate_row_field(schema: RowType, dotted: str):
+    """The type of "r.a.b" where column "r" is ROW-typed, or None."""
+    parts = dotted.split(".")
+    for k in range(len(parts) - 1, 0, -1):
+        head = ".".join(parts[:k])
+        if not schema.contains(head):
+            continue
+        t = schema.find_child(head)
+        ok = True
+        for nm in parts[k:]:
+            if t.kind != TypeKind.ROW or not t.contains(nm):
+                ok = False
+                break
+            t = t.find_child(nm)
+        if ok:
+            return t
+    return None
+
+
+def _vector_math(expr: Call) -> Expr:
+    """``dot_product``/``l2_squared``/``l2_norm`` over arrays, rewritten
+    onto ``zip_with``/``transform`` and ``array_sum``."""
+    x, y = FieldRef(None, "x"), FieldRef(None, "y")
+    if expr.name == "l2_norm":
+        return Call(None, "sqrt", (Call(None, "array_sum", (
+            Call(None, "transform", (expr.args[0], Lambda(
+                None, ("x",), Call(None, "multiply", (x, x))))),)),))
+    if expr.name == "dot_product":
+        body = Call(None, "multiply", (x, y))
+    else:
+        d = Call(None, "minus", (x, y))
+        body = Call(None, "multiply", (d, d))
+    return Call(None, "array_sum", (Call(None, "zip_with", (
+        expr.args[0], expr.args[1], Lambda(None, ("x", "y"), body))),))
+
+
+def _need(args, kind, name: str, n: int = 1) -> None:
+    for a in args[:n]:
+        if not isinstance(a.dtype, kind):
+            raise TypeError(f"{name} expects {kind.__name__} arguments")
+
+
+def _resolve_complex_call(name: str, args) -> Optional[Expr]:
+    """The result type of a call that makes or reads an ARRAY, MAP or ROW
+    (the JAX package's ``resolve_types`` branches); None for any other."""
+    a0 = args[0].dtype if args else None
+    if name in ("row_constructor", "row"):
+        rt = row_type([f"c{i + 1}" for i in range(len(args))],
+                      [a.dtype for a in args])
+        return Call(rt, "row_constructor", args)
+    if name == "map_entries":
+        _need(args, MapType, name)
+        return Call(array(row_type(["key", "value"], [a0.key, a0.value])),
+                    name, args)
+    if name == "zip":
+        _need(args, ArrayType, name, len(args))
+        return Call(array(row_type(
+            [f"c{i + 1}" for i in range(len(args))],
+            [a.dtype.element for a in args])), name, args)
+    if name in ("concat", "reverse") and isinstance(a0, ArrayType):
+        if name == "reverse":
+            return Call(a0, "array_reverse", args)
+        if len(args) != 2:
+            raise TypeError("concat over arrays takes exactly two inputs")
+        if (not isinstance(args[1].dtype, ArrayType)
+                or args[1].dtype.element.kind != a0.element.kind):
+            raise TypeError("concat: array types differ")
+        return Call(a0, "array_concat", args)
+    if name in ("split", "regexp_split", "regexp_extract_all"):
+        return Call(array(VARCHAR), name, args)
+    if name in ("array_sort", "array_distinct", "slice", "array_sort_desc",
+                "array_duplicates", "shuffle", "remove_nulls", "trim_array",
+                "array_top_n"):
+        _need(args, ArrayType, name)
+        return Call(a0, name, args)
+    if name == "map_concat":
+        _need(args, MapType, name, 2)
+        if (a0.key.kind != args[1].dtype.key.kind
+                or a0.value.kind != args[1].dtype.value.kind):
+            raise TypeError("map_concat: map types differ")
+        return Call(a0, name, args)
+    if name == "array_remove":
+        # filter(a, x -> x <> v OR x IS NULL): NULL elements stay
+        # (ArrayRemoveFunction.h)
+        _need(args, ArrayType, name)
+        px = FieldRef(a0.element, "__arx")
+        body = Call(BOOLEAN, "or", (
+            Call(BOOLEAN, "neq", (px, args[1])),
+            Call(BOOLEAN, "is_null", (px,))))
+        return Call(a0, "filter", (args[0], Lambda(BOOLEAN, ("__arx",),
+                                                   body)))
+    if name in ("array_intersect", "array_except", "array_union",
+                "arrays_overlap"):
+        _need(args, ArrayType, name, 2)
+        if a0.element.kind != args[1].dtype.element.kind:
+            raise TypeError(f"{name}: element types differ")
+        return Call(BOOLEAN if name == "arrays_overlap" else a0, name, args)
+    if name in ("array_has_duplicates", "map_key_exists",
+                "map_keys_overlap"):
+        return Call(BOOLEAN, name, args)
+    if name == "array_cum_sum":
+        return Call(array(DOUBLE if a0.element.is_floating else BIGINT),
+                    name, args)
+    if name == "array_normalize":
+        return Call(array(DOUBLE), name, args)
+    if name in ("map_subset", "map_intersect", "map_except",
+                "map_remove_null_values", "map_top_n",
+                "map_values_in_range", "remap_keys"):
+        _need(args, MapType, name)
+        return Call(a0, name, args)
+    if name == "map_normalize":
+        return Call(map_(a0.key, DOUBLE), name, args)
+    if name in ("map_top_n_keys", "map_keys_by_top_n_values"):
+        return Call(array(a0.key), name, args)
+    if name == "map_top_n_values":
+        return Call(array(a0.value), name, args)
+    if name == "map":
+        _need(args, ArrayType, name, 2)
+        return Call(map_(a0.element, args[1].dtype.element), name, args)
+    if name in ("map_from_entries", "multimap_from_entries"):
+        et = a0.element
+        if not isinstance(et, RowType) or len(et.children) != 2:
+            raise TypeError(f"{name} expects ARRAY(ROW(k, v))")
+        vt = et.children[1] if name == "map_from_entries" else array(
+            et.children[1])
+        return Call(map_(et.children[0], vt), name, args)
+    if name in ("split_to_map", "split_to_multimap"):
+        # split_to_multimap: duplicate keys repeat as entries (the JAX
+        # package's form, not Presto's map(k, array(v)))
+        return Call(map_(VARCHAR, VARCHAR), name, args)
+    if name == "flatten":
+        if not isinstance(a0.element, ArrayType):
+            raise TypeError("flatten expects ARRAY(ARRAY(T))")
+        return Call(a0.element, name, args)
+    if name in ("ngrams", "combinations", "array_split_into_chunks"):
+        return Call(array(a0), name, args)
+    if name == "array_frequency":
+        return Call(map_(a0.element, INTEGER), name, args)
+    if name == "cosine_similarity":
+        return Call(DOUBLE, name, args)
+    if name == "array_join":
+        return Call(VARCHAR, name, args)
+    if (name == "element_at" and len(args) == 2
+            and isinstance(args[0], Call)
+            and args[0].name == "array_constructor"
+            and isinstance(args[1], Literal)):
+        # ARRAY[e1..en][k] folds to its k-th entry (1-based, negative
+        # from the end, NULL out of bounds)
+        entries, et = args[0].args, a0.element
+        k = int(args[1].value)
+        if k < 0:
+            k = len(entries) + 1 + k
+        if not 1 <= k <= len(entries):
+            return Literal(et, None)
+        picked = entries[k - 1]
+        if picked.dtype is not None and picked.dtype.kind != et.kind:
+            return Cast(et, picked, False)
+        return picked
+    if name == "array_constructor":
+        et = None
+        for a in args:
+            if a.dtype is None:
+                continue
+            et = a.dtype if et is None else (
+                a.dtype if a.dtype.kind == et.kind
+                else common_numeric_type(et, a.dtype))
+        return Call(array(et if et is not None else BIGINT), name, args)
+    if name == "repeat":
+        return Call(array(a0), name, args)
+    if name == "sequence":
+        if len(args) != 2:
+            raise TypeError("sequence(start, stop) takes 2 arguments")
+        return Call(array(BIGINT), name, args)
+    if name in ("map_keys", "map_values"):
+        _need(args, MapType, name)
+        return Call(array(a0.key if name == "map_keys" else a0.value),
+                    name, args)
+    return None
+
+
+#: surface array functions rewritten onto the derived lanes at bind time
+_ARRAY_FUNCS = {
+    "cardinality", "array_sum", "array_average", "array_min", "array_max",
+    "contains", "element_at", "array_position",
+}
+
+#: map lambda matches: the array match forms pointed at the key or value
+#: lane (velox/functions/prestosql/MapFunctions.h)
+_MAP_MATCH_FNS = {
+    "any_keys_match": (("k", "any"), lambda mt: mt.key),
+    "all_keys_match": (("k", "all"), lambda mt: mt.key),
+    "no_keys_match": (("k", "none"), lambda mt: mt.key),
+    "any_values_match": (("v", "any"), lambda mt: mt.value),
+    "no_values_match": (("v", "none"), lambda mt: mt.value),
+    "map_values_any_match": (("v", "any"), lambda mt: mt.value),
+    "map_values_all_match": (("v", "all"), lambda mt: mt.value),
+    "map_values_none_match": (("v", "none"), lambda mt: mt.value),
+}
+
+#: functions taking a lambda
+_HIGHER_ORDER_FUNCS = {
+    "transform", "any_match", "all_match", "none_match",
+    "transform_values", "map_filter", "filter", "transform_keys",
+    "zip_with", "map_zip_with", "find_first", "find_first_index",
+    "array_max_by", "array_min_by", "transform_with_index",
+} | set(_MAP_MATCH_FNS)
+
+
+def _lambda_schema(params, param_types, outer: RowType) -> RowType:
+    """A lambda body's scope: the parameters, then the outer row's
+    scalar columns (captures), which the parameters shadow."""
+    names, types = list(params), list(param_types)
+    for n, t in zip(outer.names, outer.children):
+        if n in params or isinstance(t, (ArrayType, MapType)):
+            continue
+        names.append(n)
+        types.append(t)
+    return RowType(TypeKind.ROW, tuple(names), tuple(types))
+
+
+def _lambda_body(lam, param_types, schema: RowType) -> Lambda:
+    if len(lam.params) != len(param_types):
+        raise TypeError(f"lambda takes {len(param_types)} parameters")
+    body = resolve_types(lam.body, _lambda_schema(lam.params, param_types,
+                                                  schema))
+    return Lambda(body.dtype, lam.params, body)
+
+
+def _resolve_higher_order(expr: Call, schema: RowType) -> Expr:
+    """fn(collection, lambda): the body types against the parameters and
+    the outer row's scalar columns."""
+    name = expr.name
+    if not expr.args or not isinstance(expr.args[-1], Lambda):
+        raise TypeError(f"{name} expects a lambda as its last argument")
+    if name in ("zip_with", "map_zip_with"):
+        if len(expr.args) != 3:
+            raise TypeError(f"{name} expects (x, y, lambda)")
+        a = resolve_types(expr.args[0], schema)
+        b = resolve_types(expr.args[1], schema)
+        kind = ArrayType if name == "zip_with" else MapType
+        _need((a, b), kind, name, 2)
+        if name == "zip_with":
+            lam = _lambda_body(expr.args[2], (a.dtype.element,
+                                              b.dtype.element), schema)
+            return Call(array(lam.dtype), name, (a, b, lam))
+        lam = _lambda_body(expr.args[2], (a.dtype.key, a.dtype.value,
+                                          b.dtype.value), schema)
+        return Call(map_(a.dtype.key, lam.dtype), name, (a, b, lam))
+    if len(expr.args) != 2:
+        raise TypeError(f"{name} expects (collection, lambda)")
+    arr = resolve_types(expr.args[0], schema)
+    t = arr.dtype
+    if name in ("transform_values", "map_filter", "transform_keys"):
+        _need((arr,), MapType, name)
+        lam = _lambda_body(expr.args[1], (t.key, t.value), schema)
+        if name == "map_filter":
+            _boolean_body(lam, name)
+            return Call(t, name, (arr, lam))
+        if name == "transform_keys":
+            return Call(map_(lam.dtype, t.value), name, (arr, lam))
+        return Call(map_(t.key, lam.dtype), name, (arr, lam))
+    if name in _MAP_MATCH_FNS:
+        _need((arr,), MapType, name)
+        lam = _lambda_body(expr.args[1], (_MAP_MATCH_FNS[name][1](t),),
+                           schema)
+        _boolean_body(lam, name)
+        return Call(BOOLEAN, name, (arr, lam))
+    _need((arr,), ArrayType, name)
+    if name == "transform_with_index":
+        lam = _lambda_body(expr.args[1], (t.element, BIGINT), schema)
+        return Call(array(lam.dtype), name, (arr, lam))
+    lam = _lambda_body(expr.args[1], (t.element,), schema)
+    if name == "transform":
+        return Call(array(lam.dtype), name, (arr, lam))
+    if name in ("array_max_by", "array_min_by"):
+        return Call(t.element, name, (arr, lam))
+    _boolean_body(lam, name)
+    if name == "filter":
+        return Call(t, name, (arr, lam))
+    if name == "find_first":
+        return Call(t.element, name, (arr, lam))
+    if name == "find_first_index":
+        return Call(BIGINT, name, (arr, lam))
+    return Call(BOOLEAN, name, (arr, lam))
+
+
+def _boolean_body(lam: Lambda, name: str) -> None:
+    if lam.dtype.kind != TypeKind.BOOLEAN:
+        raise TypeError(f"{name} lambda must return BOOLEAN")
+
+
+def _substitute_param(expr: Expr, param: str, repl: Expr) -> Expr:
+    if isinstance(expr, FieldRef):
+        return repl if expr.name == param else expr
+    if isinstance(expr, Call):
+        return Call(expr.dtype, expr.name, tuple(
+            _substitute_param(a, param, repl) for a in expr.args))
+    if isinstance(expr, Cast):
+        return Cast(expr.dtype, _substitute_param(expr.expr, param, repl),
+                    expr.null_on_failure)
+    if isinstance(expr, TryExpr):
+        return TryExpr(expr.dtype,
+                       _substitute_param(expr.expr, param, repl))
+    return expr
+
+
+def _wrap_captures(expr: Expr, params, lanes) -> Expr:
+    """Captured outer-row FieldRefs inside a lambda body become
+    ``__capture(st, ln, elemv, col)``: gathered to the element capacity
+    by owning row at evaluation (velox/expression/LambdaExpr.cpp)."""
+    st, ln, ev = lanes
+    if isinstance(expr, FieldRef):
+        if expr.name in params or "#" in expr.name:
+            return expr
+        return Call(expr.dtype, "__capture", (st, ln, ev, expr))
+    if isinstance(expr, Call):
+        return Call(expr.dtype, expr.name, tuple(
+            _wrap_captures(a, params, lanes) for a in expr.args))
+    if isinstance(expr, Cast):
+        return Cast(expr.dtype, _wrap_captures(expr.expr, params, lanes),
+                    expr.null_on_failure)
+    if isinstance(expr, TryExpr):
+        return TryExpr(expr.dtype, _wrap_captures(expr.expr, params, lanes))
+    return expr
+
+
+def _lanes(x: str, lane: str, lane_t: DataType):
+    return (FieldRef(INTEGER, f"{x}#start"), FieldRef(INTEGER, f"{x}#len"),
+            FieldRef(lane_t, f"{x}#{lane}"))
+
+
+def _lambda_over(x: str, lane: str, lane_t: DataType, lam: Lambda):
+    """A one-parameter lambda body over a collection lane, captures
+    wrapped: ``(st, ln, ev, body)``."""
+    st, ln, ev = _lanes(x, lane, lane_t)
+    body = _substitute_param(lam.body, lam.params[0], ev)
+    return st, ln, ev, _wrap_captures(body, lam.params, (st, ln, ev))
+
+
+def _string_pass(et: DataType, out: Expr, d) -> Expr:
+    """A string element read back through its dictionary (the codes keep
+    it as the result's dictionary)."""
+    if not et.is_string:
+        return out
+    n = len(d) if d is not None else 0
+    table = np.concatenate([[-1], np.arange(n)]).astype(np.int32)
+    return DictTransform(et, out, table, d)
+
+
+def _key_code(lit: Expr, et: DataType, d, name: str) -> Expr:
+    """A literal compared with a string lane becomes its code there."""
+    if not et.is_string:
+        return lit
+    if not isinstance(lit, Literal):
+        raise TypeError(f"{name} on string elements needs a literal")
+    return Literal(INTEGER, d.code_of(lit.value) if d is not None else -2)
+
+
+def bind_array_funcs(expr: Expr, dictionaries: Dict[str, "Dictionary"]
+                     ) -> Expr:
+    """Rewrite array and map function calls onto the collection column's
+    derived lanes (``x#start``, ``x#len``, ``x#elemv``; a map's ``x#kv``
+    and ``x#vv``: ``exec/operator.py`` ``eval_pairs``), so that
+    ``array_sum(x)`` and the rest evaluate as flat segment reductions
+    that hold for any (gathered, shared) offsets
+    (velox/functions/prestosql/ArrayFunctions.h runs per row)."""
+    if not isinstance(expr, Call):
+        if isinstance(expr, Cast):
+            return Cast(expr.dtype, bind_array_funcs(expr.expr, dictionaries),
+                        expr.null_on_failure)
+        if isinstance(expr, TryExpr):
+            return TryExpr(expr.dtype,
+                           bind_array_funcs(expr.expr, dictionaries))
+        return expr
+    name, args = expr.name, expr.args
+    a0 = args[0].dtype if args else None
+
+    def column(kind) -> str:
+        if not isinstance(args[0], FieldRef):
+            raise TypeError(f"{name} requires a {kind} column reference")
+        return args[0].name
+
+    if name in ("any_match", "all_match", "none_match"):
+        x = column("ARRAY")
+        st, ln, _, body = _lambda_over(x, "elemv", a0.element, args[1])
+        return Call(BOOLEAN, f"__array_{name}", (st, ln, body))
+    if name in _MAP_MATCH_FNS:
+        x = column("MAP")
+        (lane, mode), lane_t = _MAP_MATCH_FNS[name][0], \
+            _MAP_MATCH_FNS[name][1](a0)
+        st, ln, _, body = _lambda_over(x, "kv" if lane == "k" else "vv",
+                                       lane_t, args[1])
+        return Call(BOOLEAN, f"__array_{mode}_match", (st, ln, body))
+    if name in ("find_first", "find_first_index", "array_max_by",
+                "array_min_by"):
+        x = column("ARRAY")
+        et = a0.element
+        st, ln, ev, body = _lambda_over(x, "elemv", et, args[1])
+        if name == "find_first_index":
+            return Call(BIGINT, "__array_find_first_index", (st, ln, body))
+        op = {"find_first": "__array_find_first",
+              "array_max_by": "__array_max_by",
+              "array_min_by": "__array_min_by"}[name]
+        return _string_pass(et, Call(et, op, (st, ln, body, ev)),
+                            dictionaries.get(f"{x}#elemv"))
+    if name in _PROJECTION_ONLY:
+        raise TypeError(
+            f"{name}(...) is only supported as a top-level projection")
+    if isinstance(a0, MapType) and name in ("map_key_exists",
+                                            "map_keys_overlap"):
+        x = column("MAP")
+        st, ln, kv = _lanes(x, "kv", a0.key)
+        d = dictionaries.get(f"{x}#kv")
+        if name == "map_key_exists":
+            lit = _key_code(bind_array_funcs(args[1], dictionaries),
+                            a0.key, d, name)
+            return Call(BOOLEAN, "__array_contains", (st, ln, kv, lit))
+        arr = args[1]
+        if not (isinstance(arr, Call) and arr.name == "array_constructor"
+                and all(isinstance(a, Literal) for a in arr.args)):
+            raise TypeError(
+                "map_keys_overlap needs a literal ARRAY[...] argument")
+        vals = [a.value for a in arr.args]
+        if a0.key.is_string:
+            table = np.zeros((len(d) if d is not None else 0) + 1, np.bool_)
+            for v in vals:
+                c = d.code_of(v) if d is not None else -2
+                if c >= 0:
+                    table[c + 1] = True
+            hit = Call(BOOLEAN, "dict_lookup_bool",
+                       (kv, Literal(BOOLEAN, table)))
+        else:
+            hit = Call(BOOLEAN, "in", (kv, *[Literal(a0.key, v)
+                                             for v in vals]))
+        return Call(BOOLEAN, "__array_any_match", (st, ln, hit))
+    if isinstance(a0, MapType) and name in ("cardinality", "element_at"):
+        x = column("MAP")
+        st, ln, kv = _lanes(x, "kv", a0.key)
+        if name == "cardinality":
+            return Cast(BIGINT, ln, False)
+        vv = FieldRef(a0.value, f"{x}#vv")
+        lit = _key_code(bind_array_funcs(args[1], dictionaries), a0.key,
+                        dictionaries.get(f"{x}#kv"), name)
+        return _string_pass(
+            a0.value, Call(a0.value, "__map_element_at",
+                           (st, ln, kv, vv, lit)),
+            dictionaries.get(f"{x}#vv"))
+    if isinstance(a0, ArrayType) and name in _ARRAY_FUNCS:
+        x = column("ARRAY")
+        et = a0.element
+        st, ln, ev = _lanes(x, "elemv", et)
+        d = dictionaries.get(f"{x}#elemv")
+        if name == "cardinality":
+            return Cast(BIGINT, ln, False)
+        if name == "array_sum":
+            return Call(expr.dtype, "__array_sum", (st, ln, ev))
+        if name in ("array_min", "array_max"):
+            return _string_pass(et, Call(et, f"__{name}", (st, ln, ev)), d)
+        if name == "array_average":
+            return Call(DOUBLE, "__array_avg", (st, ln, ev))
+        arg = bind_array_funcs(args[1], dictionaries)
+        if name == "element_at":
+            return _string_pass(et, Call(et, "__array_element_at",
+                                         (st, ln, ev, arg)), d)
+        lit = _key_code(arg, et, d, name)
+        if name == "array_position":
+            return Call(BIGINT, "__array_position", (st, ln, ev, lit))
+        return Call(BOOLEAN, "__array_contains", (st, ln, ev, lit))
+    return Call(expr.dtype, name, tuple(bind_array_funcs(a, dictionaries)
+                                        for a in args))
+
+
+#: collection-valued calls that run only as a top-level projection
+#: (``ProjectOp``)
+_PROJECTION_ONLY = {
+    "transform", "transform_values", "map_filter", "map_concat", "filter",
+    "transform_keys", "zip_with", "array_concat", "array_reverse",
+    "map_keys", "map_values", "sequence", "slice", "repeat", "array_sort",
+    "array_distinct", "array_intersect", "array_except", "array_union",
+    "arrays_overlap", "split", "regexp_split", "regexp_extract_all",
+}
+
+
 def _resolve_string_call(name: str, args) -> Optional[Expr]:
     """The result type of a string function, all of which phase 2 binds
     to dictionary transforms; None for any other name. The array-valued
-    ones (``split``, ``regexp_split``, ``regexp_extract_all``) wait for
-    the complex types."""
+    ones (``split``, ``regexp_split``, ``regexp_extract_all``) resolve
+    with the complex calls."""
     if name in ("substr", "substring"):
         return Call(VARCHAR, "substr", args)
     if name in ("upper", "lower", "trim", "ltrim", "rtrim", "reverse",
@@ -1268,6 +1770,14 @@ def bind_strings(expr: Expr, dictionaries: Dict[str, "Dictionary"],
     string columns compare ranks in the union of their dictionaries;
     string functions and casts become ``DictTransform`` gathers.
     """
+    if (isinstance(expr, DictTransform) and isinstance(expr.codes, Call)
+            and expr.codes.name.startswith(("__array_", "__map_"))):
+        # a string element read back by bind_array_funcs: its lambda body
+        # still holds string compares to bind
+        inner = expr.codes
+        return dataclasses.replace(expr, codes=Call(
+            inner.dtype, inner.name, tuple(
+                bind_strings(a, dictionaries, ranges) for a in inner.args)))
     if isinstance(expr, (FieldRef, Literal, DictTransform, PairTransform)):
         return expr
     if isinstance(expr, Cast):
@@ -1580,7 +2090,8 @@ class ExprSet:
         self.schema = schema
         self.dictionaries = dictionaries or {}
         self.ranges = ranges or {}
-        resolved = [resolve_types(e, schema) for e in exprs]
+        resolved = [bind_array_funcs(resolve_types(e, schema),
+                                     self.dictionaries) for e in exprs]
         bound = [_const_string(bind_strings(e, self.dictionaries,
                                             self.ranges))
                  for e in resolved]

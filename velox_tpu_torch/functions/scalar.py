@@ -728,3 +728,306 @@ for _name in ("rand", "random", "secure_rand", "secure_random"):
 # the date and probability families register on import
 import velox_tpu_torch.functions.dates  # noqa: E402,F401
 import velox_tpu_torch.functions.probability  # noqa: E402,F401
+
+
+# ------------------------------------------------------ array functions
+# velox/functions/prestosql/ArrayFunctions.h and MapSubscript. The surface
+# names only resolve types: the compiler rewrites each call onto the
+# collection's derived lanes (start, len, elements:
+# ``expr/compiler.py`` ``bind_array_funcs``) as an internal ``__array_*``
+# form, a flat segment reduction that holds for any gathered or shared
+# offsets. Integer counts and sums are differences of int64 prefixes;
+# float sums add disjoint power-of-two blocks (``ops/window.py``
+# ``range_sum``), so a NaN or a large value stays in its own row.
+
+
+def _array_elem_type(args):
+    from velox_tpu_torch.types.types import ArrayType, MapType
+
+    if isinstance(args[0], MapType):
+        return args[0].value      # element_at(map, key) -> value type
+    if not isinstance(args[0], ArrayType):
+        raise TypeError(f"expected ARRAY argument, got {args[0]}")
+    return args[0].element
+
+
+def _array_sum_type(args):
+    return DOUBLE if _array_elem_type(args).is_floating else BIGINT
+
+
+def _unbound_array(*a):  # pragma: no cover
+    raise RuntimeError("array function must be bound by the compiler")
+
+
+for _n, _rt in [
+    ("cardinality", lambda a: BIGINT),
+    ("array_sum", _array_sum_type),
+    ("array_average", lambda a: DOUBLE),
+    ("contains", lambda a: BOOLEAN),
+    ("element_at", _array_elem_type),
+    ("array_position", lambda a: BIGINT),
+    ("array_min", _array_elem_type),
+    ("array_max", _array_elem_type),
+    ("array_sort", lambda a: a[0]),
+    ("array_distinct", lambda a: a[0]),
+]:
+    register_function(ScalarFunction(_n, _rt, _unbound_array))
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x.index_select(0, idx.to(torch.int64).clamp(0, x.shape[0] - 1))
+
+
+def _prefix(vals: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.zeros(1, dtype=vals.dtype, device=vals.device),
+                      torch.cumsum(vals, 0)])
+
+
+def _seg_range(ps, st, ln):
+    """Per row, the prefix difference over [start, start + len)."""
+    return _take(ps, st + ln) - _take(ps, st)
+
+
+def _and(a, b):
+    if a is None:
+        return b
+    return a if b is None else a & b
+
+
+def _max_len(ln) -> int:
+    from velox_tpu_torch.utils import syncs
+
+    return max(syncs.to_int(ln.max()), 1) if ln.numel() else 1
+
+
+def _seg_count(st, ln, flag):
+    return _seg_range(_prefix(flag.to(torch.int64)), st, ln)
+
+
+def _seg_sum(st, ln, v):
+    """Per-row sum of ``v`` (zeroed where NULL) over its range."""
+    if v.dtype.is_floating_point:
+        from velox_tpu_torch.ops.window import range_sum
+
+        return range_sum(v.to(torch.float64), st.to(torch.int64),
+                         (st + ln).to(torch.int64), _max_len(ln))
+    return _seg_range(_prefix(v.to(torch.int64)), st, ln)
+
+
+def _array_sum_impl(stp, lnp, evp):
+    (st, _), (ln, lv), (ev, evalid) = stp, lnp, evp
+    if evalid is not None:
+        ev = torch.where(evalid, ev, torch.zeros_like(ev))
+    return _seg_sum(st, ln, ev), lv
+
+
+def _array_avg_impl(stp, lnp, evp):
+    (st, _), (ln, lv), (ev, evalid) = stp, lnp, evp
+    ev = ev.to(torch.float64)
+    ones = torch.ones(ev.shape, dtype=torch.bool, device=ev.device)
+    if evalid is not None:
+        ev = torch.where(evalid, ev, torch.zeros_like(ev))
+        ones = evalid
+    s = _seg_sum(st, ln, ev)
+    c = _seg_count(st, ln, ones)
+    return s / c.clamp(min=1).to(torch.float64), _and(c > 0, lv)
+
+
+def _array_contains_impl(stp, lnp, evp, litp):
+    (st, _), (ln, lv), (ev, evalid), (v, _) = stp, lnp, evp, litp
+    hits = ev == v.to(ev.dtype)
+    if evalid is not None:
+        hits = hits & evalid
+    found = _seg_count(st, ln, hits) > 0
+    valid = lv
+    if evalid is not None:
+        # Presto: not found in an array holding a NULL is NULL
+        sure = found | (_seg_count(st, ln, ~evalid) == 0)
+        valid = _and(valid, sure)
+    return found, valid
+
+
+def _array_element_at_impl(stp, lnp, evp, idxp):
+    (st, _), (ln, lv), (ev, evalid), (idx, iv) = stp, lnp, evp, idxp
+    idx = idx.to(torch.int64)
+    ln64 = ln.to(torch.int64)
+    # 1-based; a negative index counts from the end
+    i0 = torch.where(idx < 0, ln64 + idx, idx - 1)
+    inb = (i0 >= 0) & (i0 < ln64)
+    pos = st.to(torch.int64) + i0.clamp(min=0)
+    pos = pos.expand(inb.shape) if pos.dim() == 0 else pos
+    valid = _and(_and(inb, lv), iv)
+    if evalid is not None:
+        valid = valid & _take(evalid, pos)
+    return _take(ev, pos), valid
+
+
+def _first_hit(st, ln, hit):
+    """Per row, the position of the first true ``hit`` in its range (the
+    element capacity where none): the k-th hit of the lane, k being the
+    hits before the row's start."""
+    ecap = hit.shape[0]
+    before = _take(_prefix(hit.to(torch.int64)), st)
+    from velox_tpu_torch.ops.sort import pack_indices
+
+    first = _take(pack_indices(hit), before)
+    return torch.where(first < (st + ln).to(torch.int64), first,
+                       torch.full_like(first, ecap))
+
+
+def _array_position_impl(stp, lnp, evp, litp):
+    """First 1-based index of the value, 0 when absent."""
+    (st, _), (ln, lv), (ev, evalid), (v, _) = stp, lnp, evp, litp
+    hit = ev == v.to(ev.dtype)
+    if evalid is not None:
+        hit = hit & evalid
+    first = _first_hit(st, ln, hit)
+    return torch.where(first < hit.shape[0], first - st + 1,
+                       torch.zeros_like(first)), lv
+
+
+def _extremes(dtype):
+    if dtype.is_floating_point:
+        big = torch.finfo(dtype).max
+        return big, -big
+    info = torch.iinfo(dtype)
+    return info.max, info.min
+
+
+def _make_array_minmax(is_min):
+    def impl(stp, lnp, evp):
+        from velox_tpu_torch.ops.window import range_minmax
+
+        (st, _), (ln, lv), (ev, evalid) = stp, lnp, evp
+        big, small = _extremes(ev.dtype)
+        ident = big if is_min else small
+        v = ev if evalid is None else torch.where(
+            evalid, ev, torch.full_like(ev, ident))
+        ones = (torch.ones(ev.shape, dtype=torch.bool, device=ev.device)
+                if evalid is None else evalid)
+        out = range_minmax(v, st.to(torch.int64), (st + ln).to(torch.int64),
+                           "min" if is_min else "max", ident, _max_len(ln))
+        return out, _and(_seg_count(st, ln, ones) > 0, lv)
+
+    return impl
+
+
+def _match_counts(stp, lnp, predp):
+    (st, _), (ln, lv), (pv, pvalid) = stp, lnp, predp
+    valid = (torch.ones(pv.shape, dtype=torch.bool, device=pv.device)
+             if pvalid is None else pvalid)
+    return (_seg_count(st, ln, pv & valid), _seg_count(st, ln, ~pv & valid),
+            _seg_count(st, ln, ~valid), lv)
+
+
+def _any_match_impl(stp, lnp, predp):
+    nt, _nf, nn, lv = _match_counts(stp, lnp, predp)
+    return nt > 0, _and(lv, (nt > 0) | (nn == 0))
+
+
+def _all_match_impl(stp, lnp, predp):
+    _nt, nf, nn, lv = _match_counts(stp, lnp, predp)
+    return nf == 0, _and(lv, (nf > 0) | (nn == 0))
+
+
+def _none_match_impl(stp, lnp, predp):
+    nt, _nf, nn, lv = _match_counts(stp, lnp, predp)
+    return nt == 0, _and(lv, (nt > 0) | (nn == 0))
+
+
+def _capture_impl(stp, lnp, evp, colp):
+    """A lambda's capture: an outer-row column gathered to the element
+    capacity by owning row (velox/expression/LambdaExpr.cpp); the
+    offsets are canonical (``exec/collect_agg.py`` ``element_owners``)."""
+    from velox_tpu_torch.exec.collect_agg import element_owners
+
+    (st, _), (ln, _), (ev, _), (cv, cvalid) = stp, lnp, evp, colp
+    owner, within = element_owners(st, ln, ev.shape[0])
+    if cv.dim() == 0:
+        return cv.expand(ev.shape[0]), _and(within, cvalid)
+    return _take(cv, owner), _and(within, _take_opt(cvalid, owner))
+
+
+def _take_opt(valid, idx):
+    return None if valid is None else _take(valid, idx)
+
+
+def _map_element_at_impl(stp, lnp, kvp, vvp, litp):
+    """MAP subscript (velox/functions/prestosql/MapSubscript.h): keys are
+    unique in a map, so the one hit's position is an int64 prefix
+    difference of (position + 1) over the hits."""
+    (st, _), (ln, lv), (kv, kvalid), (vv, vvalid), (lit, _) = (
+        stp, lnp, kvp, vvp, litp)
+    hit = kv == lit.to(kv.dtype)
+    if kvalid is not None:
+        hit = hit & kvalid
+    pos1 = torch.where(hit, torch.arange(1, hit.shape[0] + 1,
+                                         device=hit.device),
+                       torch.zeros((), dtype=torch.int64, device=hit.device))
+    pos = _seg_range(_prefix(pos1), st, ln) - 1
+    found = pos >= 0
+    valid = _and(found, lv)
+    if vvalid is not None:
+        valid = valid & _take(vvalid, pos)
+    return _take(vv, pos), valid
+
+
+def _find_first_impl(stp, lnp, predp, evp):
+    (st, _), (ln, lv), (pv, pvalid), (ev, evalid) = stp, lnp, predp, evp
+    fpos = _first_hit(st, ln, _and(pv, pvalid))
+    valid = _and(fpos < pv.shape[0], lv)
+    if evalid is not None:
+        valid = valid & _take(evalid, fpos)
+    return _take(ev, fpos), valid
+
+
+def _find_first_index_impl(stp, lnp, predp):
+    (st, _), (ln, lv), (pv, pvalid) = stp, lnp, predp
+    fpos = _first_hit(st, ln, _and(pv, pvalid))
+    return fpos - st + 1, _and(fpos < pv.shape[0], lv)
+
+
+def _make_extremal_by(is_min):
+    def impl(stp, lnp, keyp, evp):
+        from velox_tpu_torch.exec.collect_agg import element_owners
+        from velox_tpu_torch.ops.window import range_minmax
+
+        (st, _), (ln, lv), (kv, kvalid), (ev, evalid) = stp, lnp, keyp, evp
+        ident = float("inf") if is_min else float("-inf")
+        k = kv.to(torch.float64)
+        if kvalid is not None:
+            k = torch.where(kvalid, k, torch.full_like(k, ident))
+        rowext = range_minmax(k, st.to(torch.int64),
+                              (st + ln).to(torch.int64),
+                              "min" if is_min else "max", ident,
+                              _max_len(ln))
+        owner, within = element_owners(st, ln, k.shape[0])
+        eq_ext = _and(within & (k == _take(rowext, owner)), kvalid)
+        fpos = _first_hit(st, ln, eq_ext)
+        valid = _and(fpos < k.shape[0], lv)
+        if evalid is not None:
+            valid = valid & _take(evalid, fpos)
+        return _take(ev, fpos), valid
+
+    return impl
+
+
+for _n, _rt, _impl in [
+    ("__array_sum", lambda a: BIGINT, _array_sum_impl),
+    ("__array_avg", lambda a: DOUBLE, _array_avg_impl),
+    ("__array_contains", lambda a: BOOLEAN, _array_contains_impl),
+    ("__array_element_at", lambda a: a[2], _array_element_at_impl),
+    ("__array_position", lambda a: BIGINT, _array_position_impl),
+    ("__array_min", lambda a: a[2], _make_array_minmax(True)),
+    ("__array_max", lambda a: a[2], _make_array_minmax(False)),
+    ("__array_any_match", lambda a: BOOLEAN, _any_match_impl),
+    ("__array_all_match", lambda a: BOOLEAN, _all_match_impl),
+    ("__array_none_match", lambda a: BOOLEAN, _none_match_impl),
+    ("__capture", lambda a: a[3], _capture_impl),
+    ("__map_element_at", lambda a: a[3], _map_element_at_impl),
+    ("__array_find_first", lambda a: a[3], _find_first_impl),
+    ("__array_find_first_index", lambda a: BIGINT, _find_first_index_impl),
+    ("__array_min_by", lambda a: a[3], _make_extremal_by(True)),
+    ("__array_max_by", lambda a: a[3], _make_extremal_by(False)),
+]:
+    register_function(ScalarFunction(_n, _rt, _impl, default_nulls=False))

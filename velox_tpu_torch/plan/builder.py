@@ -319,8 +319,8 @@ class PlanBuilder:
                 schema, masks):
             if fn == "reduce_agg":
                 raise NotImplementedError(
-                    "reduce_agg: its lambda state waits for the complex "
-                    "types (ROADMAP queue item 6)")
+                    "reduce_agg is not ported: it waits for ROADMAP A.2 "
+                    "(slice 12)")
             if fn in ("max_data_size_for_stats", "sum_data_size_for_stats"):
                 # MaxSizeForStatsAggregate / SumDataSizeForStats: max or
                 # sum over the per-row serialized size

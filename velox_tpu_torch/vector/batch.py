@@ -9,24 +9,19 @@ unchanged tensors.
 
 from __future__ import annotations
 
-import datetime
-import decimal
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from velox_tpu_torch.types.types import (
-    DecimalType, RowType, TypeKind, row_type,
+from velox_tpu_torch.types.types import RowType, TypeKind, row_type
+from velox_tpu_torch.vector.column import (
+    COMPLEX_COLUMNS, ArrayColumn, Column, Dictionary, MapColumn, RowColumn,
+    host_values, make_any_column,
 )
-from velox_tpu_torch.vector.column import Column, Dictionary
 
 #: batch capacities are padded to a multiple of this
 LANE = 128
-
-_EPOCH = datetime.date(1970, 1, 1)
-_EPOCH_TS = datetime.datetime(1970, 1, 1)
-_DEC_CTX = decimal.Context(prec=60)
 
 
 def round_capacity(n: int) -> int:
@@ -74,12 +69,45 @@ class Batch:
 
     # -------------------------------------------------------- construction
     @staticmethod
+    def from_pydict(data: Dict[str, Sequence], types: Dict[str, object],
+                    capacity: Optional[int] = None,
+                    device=None) -> "Batch":
+        """Host lists -> one batch (``None`` is NULL). ARRAY columns take
+        lists, MAP columns dicts or (key, value) pair lists, ROW columns
+        dicts. Integer lanes get (min, max) stats, as the JAX package's
+        ``from_pydict`` gives them."""
+        from velox_tpu_torch import resolve_device
+
+        device = resolve_device(device)
+        names = list(data)
+        n = len(data[names[0]]) if names else 0
+        cap = capacity if capacity is not None else round_capacity(n)
+        cols = {}
+        for name in names:
+            col = make_any_column(types[name], list(data[name]), cap, device)
+            if (isinstance(col, Column) and col.dictionary is None
+                    and not col.values.dtype.is_floating_point
+                    and col.values.dtype != torch.bool):
+                lane = col.values[:n].cpu().numpy()
+                if col.valid is not None:
+                    lane = lane[col.valid[:n].cpu().numpy()]
+                if lane.size:
+                    col = Column(col.dtype, col.values, col.valid, None,
+                                 (int(lane.min()), int(lane.max())))
+            cols[name] = col
+        sel = torch.arange(cap, device=device) < n
+        return Batch(cols, sel, num_rows=n)
+
+    @staticmethod
     def empty_like(schema: RowType, capacity: int,
                    device: torch.device) -> "Batch":
         from velox_tpu_torch import torch_dtype
 
         cols = {}
         for name, t in zip(schema.names, schema.children):
+            if t.kind in (TypeKind.ARRAY, TypeKind.MAP, TypeKind.ROW):
+                cols[name] = make_any_column(t, [], capacity, device)
+                continue
             d = Dictionary([]) if t.is_string else None
             cols[name] = Column(
                 t, torch.zeros((capacity,), dtype=torch_dtype(t.dtype),
@@ -123,10 +151,7 @@ class Batch:
         cap2 = round_capacity(max(count, 1))
         if cap2 >= self.capacity:
             return self
-        cols = {n: Column(c.dtype, c.values[:cap2],
-                          None if c.valid is None else c.valid[:cap2],
-                          c.dictionary, c.stats)
-                for n, c in self.columns.items()}
+        cols = {n: _slice_column(c, cap2) for n, c in self.columns.items()}
         sel2 = torch.arange(cap2, device=self.device) < count
         return Batch(cols, sel2, count)
 
@@ -158,23 +183,15 @@ class Batch:
             idx = idx[:limit]
         out: Dict[str, list] = {}
         for name, col in self.columns.items():
+            if isinstance(col, COMPLEX_COLUMNS):
+                # arrays as lists, maps as (key, value) pair lists, rows
+                # as dicts; the flat element columns go to the host whole
+                out[name] = col.gather(idx).to_pylist()
+                continue
             vals = to_numpy(col.values.index_select(0, idx))
             valid = (to_numpy(col.valid.index_select(0, idx))
                      if col.valid is not None else None)
-            if col.dictionary is not None:
-                py = list(col.dictionary.decode(vals))
-            elif isinstance(col.dtype, DecimalType):
-                s = col.dtype.scale
-                py = [decimal.Decimal(int(v)).scaleb(-s, _DEC_CTX)
-                      for v in vals.tolist()]
-            elif col.dtype.kind == TypeKind.DATE:
-                py = [_EPOCH + datetime.timedelta(days=int(v))
-                      for v in vals.tolist()]
-            elif col.dtype.kind == TypeKind.TIMESTAMP:
-                py = [_EPOCH_TS + datetime.timedelta(microseconds=int(v))
-                      for v in vals.tolist()]
-            else:
-                py = vals.tolist()
+            py = host_values(col.dtype, col.dictionary, vals)
             if valid is not None:
                 py = [v if ok else None for v, ok in zip(py, valid)]
             out[name] = py
@@ -198,6 +215,8 @@ def harmonize_dictionaries(batches: Sequence[Batch]) -> List[Batch]:
     changed = False
     for n in batches[0].names:
         parts = [b.columns[n] for b in batches]
+        if isinstance(parts[0], COMPLEX_COLUMNS):
+            continue
         dicts = [p.dictionary for p in parts if p.dictionary is not None]
         if not dicts:
             continue
@@ -256,6 +275,9 @@ def concat_batches(batches: Sequence[Batch],
     cols = {}
     for n in batches[0].names:
         parts = [b.columns[n] for b in batches]
+        if isinstance(parts[0], COMPLEX_COLUMNS):
+            cols[n] = _concat_complex(parts, pad)
+            continue
         d = parts[0].dictionary
         valid = None
         if any(p.valid is not None for p in parts):
@@ -271,3 +293,83 @@ def concat_batches(batches: Sequence[Batch],
     if all(b.num_rows is not None for b in batches):
         nr = sum(b.num_rows for b in batches)
     return Batch(cols, sel, nr)
+
+
+def _slice_column(c, cap2: int):
+    """Any column cut to its first ``cap2`` rows; the flat element
+    columns of an ARRAY or MAP are shared as they are."""
+    cut = (lambda t: None if t is None else t[:cap2])
+    if isinstance(c, ArrayColumn):
+        return ArrayColumn(c.dtype, c.starts[:cap2], c.lengths[:cap2],
+                           c.elements, cut(c.valid))
+    if isinstance(c, MapColumn):
+        return MapColumn(c.dtype, c.starts[:cap2], c.lengths[:cap2],
+                         c.keys, c.values, cut(c.valid))
+    if isinstance(c, RowColumn):
+        return RowColumn(c.dtype, tuple(_slice_column(k, cap2)
+                                        for k in c.children), cut(c.valid))
+    return Column(c.dtype, c.values[:cap2], cut(c.valid), c.dictionary,
+                  c.stats)
+
+
+def _cat_padded(parts: List[torch.Tensor], pad: int, fill=0):
+    if pad:
+        parts = parts + [torch.full((pad,), fill, dtype=parts[0].dtype,
+                                    device=parts[0].device)]
+    return torch.cat(parts)
+
+
+def _cat_valid(parts, pad: int) -> Optional[torch.Tensor]:
+    if all(p.valid is None for p in parts):
+        return None
+    return _cat_padded([p.validity() for p in parts], pad, False)
+
+
+def _concat_complex(parts, pad: int):
+    """ARRAY, MAP and ROW parts concatenated: a ROW child by child; an
+    ARRAY or MAP's offsets shift by the element capacity of the parts
+    before it, and its flat columns concatenate once
+    (``_concat_offset_columns``/``_concat_row_columns`` of the JAX
+    package). Element string columns of different dictionaries are
+    brought onto one first."""
+    if isinstance(parts[0], RowColumn):
+        kids = []
+        for j in range(len(parts[0].children)):
+            sub = [p.children[j] for p in parts]
+            kids.append(_concat_complex(sub, pad)
+                        if isinstance(sub[0], COMPLEX_COLUMNS)
+                        else _concat_flat(sub, pad))
+        return RowColumn(parts[0].dtype, tuple(kids),
+                         _cat_valid(parts, pad))
+    is_map = isinstance(parts[0], MapColumn)
+    flats = [p.keys if is_map else p.elements for p in parts]
+    offs, off = [], 0
+    for f in flats:
+        offs.append(off)
+        off += f.capacity
+    starts = _cat_padded([p.starts + o for p, o in zip(parts, offs)], pad)
+    lengths = _cat_padded([p.lengths for p in parts], pad)
+    valid = _cat_valid(parts, pad)
+
+    def flat(cs):
+        return (_concat_complex(cs, 0) if isinstance(cs[0], COMPLEX_COLUMNS)
+                else _concat_flat(cs, 0))
+
+    if is_map:
+        return MapColumn(parts[0].dtype, starts, lengths, flat(flats),
+                         flat([p.values for p in parts]), valid)
+    return ArrayColumn(parts[0].dtype, starts, lengths, flat(flats), valid)
+
+
+def _concat_flat(parts: List[Column], pad: int) -> Column:
+    """Flat columns of one type concatenated (one dictionary)."""
+    if any(p.dictionary is not None for p in parts):
+        d0 = parts[0].dictionary
+        if not all(p.dictionary is d0 for p in parts):
+            sels = [torch.ones(p.capacity, dtype=torch.bool,
+                               device=p.values.device) for p in parts]
+            parts = [b.columns["c"] for b in harmonize_dictionaries(
+                [Batch({"c": p}, s) for p, s in zip(parts, sels)])]
+    return Column(parts[0].dtype, _cat_padded([p.values for p in parts],
+                                               pad),
+                  _cat_valid(parts, pad), parts[0].dictionary)
