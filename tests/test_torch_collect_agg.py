@@ -3,8 +3,8 @@ the JAX package on the CPU: the exact ``approx_percentile`` and
 ``approx_winsorized_mean`` beside scatter, distinct and masked
 aggregates, keyed (dictionary and integer keys) and keyless, over
 128-row splits with NULLs; the float32 quantile position the reference
-takes; keyless empty input; and the refusals (ARRAY/MAP kinds, streaming
-and two-step collect aggregation).
+takes; keyless empty input; the ARRAY/MAP kinds; and the refusals
+(streaming and two-step collect aggregation).
 """
 
 import numpy as np
@@ -170,14 +170,10 @@ def test_narrow_lanes_give_the_single_step(ca_table, monkeypatch):
     "array_agg(x) AS r", "map_agg(k, x) AS r", "histogram(i) AS r",
     "approx_most_frequent(3, i) AS r"])
 def test_array_and_map_kinds_wait_for_complex_types(ca_table, agg):
-    """The complex types are ported: array_agg, map_agg and histogram
-    equal the JAX package beside a scatter aggregate; the kinds of
-    ROADMAP A.2's slice 12 still raise, naming it."""
+    """The complex types are ported: array_agg, map_agg, histogram and
+    approx_most_frequent equal the JAX package beside a scatter
+    aggregate."""
     aggs = [agg, "count(*) AS n"]
-    if agg.startswith("approx_most_frequent"):
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            torch_run_plan(_plan(["k"], aggs))
-        return
     assert_same(torch_run_plan(_plan(["k"], aggs)), ca_table(["k"], aggs),
                 agg)
 

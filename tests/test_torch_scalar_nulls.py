@@ -132,16 +132,31 @@ def test_grammar_filters_match_jax(both, predicate):
 
 
 def test_missing_function_names_the_gap(both):
+    """The gap this pinned is closed: ``__tz_adjust`` over instants made
+    from the integer column ``i`` (the JAX package's zone as two array
+    literals, the port's as one zone-table literal) gives the same
+    instants."""
+    from velox_tpu.expr.ir import Call as JCall, FieldRef as JField
+    from velox_tpu.expr.ir import Literal as JLiteral
+    from velox_tpu.types import BIGINT as J_BIGINT
+    from velox_tpu.utils.tz import zone_tables_us
     from velox_tpu_torch.expr.ir import Call, FieldRef, Literal
     from velox_tpu_torch.types import BIGINT
+    from velox_tpu_torch.utils.tz import zone_table
 
-    adjust = Call(None, "__tz_adjust", (FieldRef(None, "i"),
-                                        Literal(BIGINT, 0),
-                                        Literal(BIGINT, 0)))
-    with pytest.raises(NotImplementedError,
-                       match="'__tz_adjust' is not ported"):
-        torch_run_plan(TorchPlanBuilder().values(both.batches[1]).project(
-            [("c", adjust)]))
+    zone = "Asia/Kolkata"
+    tr, of = zone_tables_us(zone)
+    jadjust = JCall(None, "__tz_adjust", (JField(None, "t"),
+                                          JLiteral(J_BIGINT, tr),
+                                          JLiteral(J_BIGINT, of)))
+    adjust = Call(None, "__tz_adjust", (FieldRef(None, "t"),
+                                        Literal(BIGINT, zone_table(zone))))
+    instants = ["i % 4000000000000000 AS t"]
+    want = jax_run_plan(JaxPlanBuilder().values(both.batches[0]).project(
+        instants).project([("c", jadjust)]).build()).to_pydict()
+    got = torch_run_plan(TorchPlanBuilder().values(both.batches[1]).project(
+        instants).project([("c", adjust)]))
+    assert got == want
 
 
 def test_min_max_over_strings_against_numpy(monkeypatch):
@@ -180,11 +195,10 @@ def test_min_max_over_strings_against_numpy(monkeypatch):
             assert got == keyless, f"keyless optimize={optimize}"
 
 
-#: what the JAX package registers and the port leaves to the time-zone
-#: slice (ROADMAP A.2, slice 12); the complex types' 26 names are ported
-NOT_PORTED = {
-    "__tz_adjust", "__tz_unadjust", "__timezone_hour", "__timezone_minute",
-}
+#: what the JAX package registers and the port does not: nothing since
+#: the time-zone names (``utils/tz.py``) and the complex types' 26 names
+#: were ported
+NOT_PORTED = set()
 
 
 def test_registry_gap_is_complex_types_and_time_zones():
@@ -194,9 +208,9 @@ def test_registry_gap_is_complex_types_and_time_zones():
     from velox_tpu.functions.registry import registry as jax_registry
     from velox_tpu_torch.functions import registry
 
-    assert len(NOT_PORTED) == 4
+    assert len(NOT_PORTED) == 0
     assert set(jax_registry) - set(registry) == NOT_PORTED
-    assert len(set(jax_registry) & set(registry)) == 182
+    assert len(set(jax_registry) & set(registry)) == 186
     for name in set(jax_registry) & set(registry):
         assert registry[name].default_nulls == \
             jax_registry[name].default_nulls, name

@@ -31,8 +31,16 @@ group-contiguous runs (``collect_runs``):
 
 Blob columns are VARBINARY over a sorted dictionary of the group blobs.
 The output keeps the group slots (a power of two at least the group
-count), not the input's capacity. The other ARRAY/MAP kinds wait for
-ROADMAP A.2 (slice 12; ``HashAggregationOp`` refuses them).
+count), not the input's capacity.
+
+* ``most_frequent``/``numeric_histogram``/``vector_sum``/``reservoir``/
+  ``classification``: one sub-grouping by (group, value, bucket or
+  position) whose representatives carry their counts or sums, laid out
+  as group runs; ``reduce`` folds each group's run by its lambda with a
+  segmented doubling scan (``_segmented_scan``).
+
+A PARTIAL step of ``array_agg``/``set_agg``/``map_agg`` names its page
+column ``name$0`` (``op._collect_suffix``).
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from velox_tpu_torch.types.types import TypeKind
 from velox_tpu_torch.utils import syncs
 from velox_tpu_torch.vector.batch import Batch, round_capacity
 from velox_tpu_torch.vector.column import (
-    ArrayColumn, Column, Dictionary, MapColumn,
+    ArrayColumn, Column, Dictionary, MapColumn, element_capacity,
 )
 
 #: the int64 with only the sign bit: XOR maps unsigned order to signed
@@ -96,7 +104,7 @@ def _spec_mask(spec, cols, sel):
     m = sel
     if spec.mask is not None:
         mv, mvd = cols[spec.mask]
-        m = m & mv
+        m = torch.logical_and(m, mv)
         if mvd is not None:
             m = m & mvd
     return m
@@ -135,6 +143,7 @@ def finish_collect(op, big: Batch) -> Batch:
                                              op.fns)):
         m = _spec_mask(spec, cols, sel)
         kind = fn.collect_kind
+        name = name + op._collect_suffix   # a PARTIAL page is name$0
         t = op.output_type.find_child(name)
         if kind is None:
             vals, valid = _scalar_result(op, i, fn, spec, cols, gids, m,
@@ -149,6 +158,10 @@ def finish_collect(op, big: Batch) -> Batch:
             vals, ok = percentile_values(
                 gids, vv, encode_sort_key(vv, None), mm, q)
             out[name] = Column(t, vals[slots], (group_sel & ok)[slots])
+        elif kind == "reduce":
+            vals, valid = _reduce(big, spec, cols, gids, m, group_sel,
+                                  out_cap)
+            out[name] = Column(t, vals, valid)
         elif kind == "winsorized":
             mean, ok = _winsorized(spec, cols, gids, m, n_groups)
             out[name] = Column(t, _pad(mean, out_cap), _pad(
@@ -339,6 +352,217 @@ def _finish_map_union_sum(big, t, spec, cols, gids, m, group_sel, out_cap):
                     Column(t.value, take(vsum[:ecap], perm), None))
 
 
+def _finish_most_frequent(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """approx_most_frequent(k, v): each group's k most frequent non-NULL
+    values with their counts, count descending (ties by value)."""
+    cap = gids.shape[0]
+    kf, vf = spec.arg
+    vv, vvd = cols[vf]
+    pgid, pk, cnt, sel2 = _pairs(gids, vv, _and_valid(m, vvd), cap)
+    perm, counts, starts = collect_runs(pgid, sel2, [-cnt])
+    topk = cols[kf][0].index_select(0, first_masked(m)[None])[0]
+    counts = torch.minimum(counts, topk.to(torch.int64))
+    return _map_out(t, out_cap, group_sel, counts, starts,
+                    Column(t.key, take(pk, perm), None,
+                           big.column(vf).dictionary),
+                    Column(t.value, take(cnt, perm), None))
+
+
+def _finish_numeric_histogram(big, t, spec, cols, gids, m, group_sel,
+                              out_cap):
+    """numeric_histogram(b, x): ``b`` equal-width buckets over each
+    group's [min, max]; each occupied bucket's mean value -> its count."""
+    cap = gids.shape[0]
+    bf, xf = spec.arg
+    xv, xvd = cols[xf]
+    mm = _and_valid(m, xvd)
+    b = cols[bf][0].index_select(0, first_masked(m)[None])[0].to(
+        torch.float64)
+    x = xv.to(torch.float64)
+    gm = torch.where(mm, gids.to(torch.int64),
+                     torch.full_like(gids, cap, dtype=torch.int64))
+    inf = torch.full((cap + 1,), float("inf"), dtype=torch.float64,
+                     device=x.device)
+    gmin = inf.scatter_reduce(0, gm, x, "amin")
+    gmax = (-inf).scatter_reduce(0, gm, x, "amax")
+    gsafe = gids.to(torch.int64).clamp(max=cap - 1)
+    lo = gmin.index_select(0, gsafe)
+    span = gmax.index_select(0, gsafe) - lo
+    pos = span > 0
+    rel = torch.where(pos, (x - lo) / torch.where(pos, span,
+                                                  torch.ones_like(span)),
+                      torch.zeros_like(x))
+    bucket = torch.clamp(torch.floor(rel * b), min=0).minimum(
+        torch.clamp(b - 1, min=0)).to(torch.int32)
+    g2, rows2, sel2, _ = group_ids_sorted([(gids, None), (bucket, None)],
+                                          mm)
+    g2c = g2.clamp(max=cap)
+    pcnt = torch.zeros(cap + 1, dtype=torch.float64, device=x.device)
+    pcnt.index_add_(0, g2c, mm.to(torch.float64))
+    psum = torch.zeros(cap + 1, dtype=torch.float64, device=x.device)
+    psum.index_add_(0, g2c, torch.where(mm, x, torch.zeros_like(x)))
+    center = psum[:cap] / torch.clamp(pcnt[:cap], min=1.0)
+    pgid = torch.where(sel2, take(gids, rows2), torch.full_like(gids, cap))
+    perm, counts, starts = collect_runs(pgid, sel2)
+    return _map_out(t, out_cap, group_sel, counts, starts,
+                    Column(t.key, take(center, perm), None),
+                    Column(t.value, take(pcnt[:cap], perm), None))
+
+
+def _finish_vector_sum(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """vector_sum(ARRAY): the element-wise sums of a group's arrays
+    (shorter arrays count as zeros past their end, NULL elements as 0)."""
+    col = big.column(spec.arg)
+    el = col.elements
+    ecap = el.capacity
+    egid = _element_groups(col, gids, m)
+    em = egid < ecap
+    owner, _ = element_owners(col.starts, col.lengths, ecap)
+    e = torch.arange(ecap, dtype=torch.int64, device=egid.device)
+    ordinal = e - take(col.starts, owner).to(torch.int64)
+    g2, rows2, sel2, _ = group_ids_sorted([(egid, None), (ordinal, None)],
+                                          em)
+    sdt = (torch.float64 if el.values.dtype.is_floating_point
+           else torch.int64)
+    zero = torch.zeros((), dtype=sdt, device=egid.device)
+    contrib = torch.where(_and_valid(em, el.valid), el.values.to(sdt), zero)
+    vsum = torch.zeros(ecap + 1, dtype=sdt, device=egid.device)
+    vsum.index_add_(0, g2.clamp(max=ecap), contrib)
+    pgid = torch.where(sel2, take(egid, rows2), torch.full_like(egid, ecap))
+    perm, counts, starts = collect_runs(pgid, sel2, [take(ordinal, rows2)])
+    return _array_out(t, out_cap, group_sel, counts, starts,
+                      take(vsum[:ecap], perm), None, el.dictionary)
+
+
+def _finish_reservoir(big, t, spec, cols, gids, m, group_sel, out_cap):
+    """reservoir_sample(x, k): a bottom-k sample of each group's
+    non-NULL values by the ``hash_i64`` priority of their row (uniform
+    without replacement, deterministic)."""
+    from velox_tpu_torch.ops.hash import _shr, hash_i64
+
+    cap = gids.shape[0]
+    xf, kf = spec.arg
+    xv, xvd = cols[xf]
+    mm = _and_valid(m, xvd)
+    k = cols[kf][0].index_select(0, first_masked(mm)[None])[0]
+    pri = _shr(hash_i64(torch.arange(cap, dtype=torch.int64,
+                                     device=gids.device)), 33).to(torch.int32)
+    perm, counts, starts = collect_runs(gids, mm, [pri])
+    lengths = torch.minimum(counts, torch.clamp(k.to(torch.int64), min=0))
+    return ArrayColumn(t, _pad(starts, out_cap), _pad(lengths, out_cap),
+                       Column(t.element, take(xv, perm), None,
+                              big.column(xf).dictionary),
+                       _group_valid(group_sel, counts, out_cap))
+
+
+def _finish_classification(big, t, spec, cols, gids, m, group_sel,
+                           out_cap):
+    """classification_*(b, outcome, pred): per group, the true and false
+    weights of each of ``b`` prediction buckets, and from their suffix
+    sums the metric at each threshold i / b (an array of ``b`` values;
+    0 where the ratio is undefined)."""
+    cap = gids.shape[0]
+    bf, of, pf = spec.arg[:3]
+    ov, ovd = cols[of]
+    pv, pvd = cols[pf]
+    mm = _and_valid(_and_valid(m, ovd), pvd)
+    bt = cols[bf][0].index_select(0, first_masked(m)[None])[0]
+    nb = syncs.to_int(bt)
+    b = bt.to(torch.float64)
+    bucket = torch.clamp(torch.floor(pv.to(torch.float64) * b), min=0)
+    bucket = bucket.minimum(torch.clamp(b - 1, min=0)).to(torch.int64)
+    gm = torch.where(mm, gids.to(torch.int64),
+                     torch.full_like(gids, cap, dtype=torch.int64))
+    nbk = max(nb, 1)
+    n_slots = out_cap
+    flat = gm.clamp(max=n_slots) * nbk + bucket.clamp(max=nbk - 1)
+    size = (n_slots + 1) * nbk
+    tw = torch.zeros(size, dtype=torch.float64, device=gids.device)
+    fw = torch.zeros(size, dtype=torch.float64, device=gids.device)
+    ob = ov.to(torch.bool)
+    tw.index_add_(0, flat, (mm & ob).to(torch.float64))
+    fw.index_add_(0, flat, (mm & ~ob).to(torch.float64))
+    tmat = tw.view(n_slots + 1, nbk)[:n_slots]
+    fmat = fw.view(n_slots + 1, nbk)[:n_slots]
+    tp = torch.flip(torch.cumsum(torch.flip(tmat, [1]), 1), [1])
+    fp = torch.flip(torch.cumsum(torch.flip(fmat, [1]), 1), [1])
+    fn_ = tmat.sum(1, keepdim=True) - tp
+    tn = fmat.sum(1, keepdim=True) - fp
+    metric = spec.fn.split("classification_")[1]
+    if metric == "thresholds":
+        vals = (torch.arange(nbk, dtype=torch.float64, device=gids.device)
+                / nb).expand(n_slots, nbk)
+    else:
+        num, den = {"precision": (tp, tp + fp), "recall": (tp, tp + fn_),
+                    "miss_rate": (fn_, tp + fn_),
+                    "fall_out": (fp, fp + tn)}[metric]
+        vals = torch.nan_to_num(num / den, nan=0.0)
+    live = torch.zeros(cap + 1, dtype=torch.bool, device=gids.device)
+    live[gm] = True
+    live = _pad(live[:cap] & group_sel, out_cap)
+    if nb <= 0:
+        live = torch.zeros_like(live)
+    g = torch.arange(n_slots, dtype=torch.int64, device=gids.device)
+    lengths = torch.where(live, torch.full_like(g, nb), torch.zeros_like(g))
+    return ArrayColumn(t, (g * nbk).to(torch.int32),
+                       lengths.to(torch.int32),
+                       Column(t.element, _pad(vals.reshape(-1),
+                                              element_capacity(n_slots * nbk)),
+                              None),
+                       live)
+
+
+def _segmented_scan(values: torch.Tensor, head: torch.Tensor, comb):
+    """Inclusive scan of ``comb`` within the runs that ``head`` starts:
+    log2(n) doubling steps, each one call of ``comb`` on whole tensors
+    (associative combines give the sequential fold's result)."""
+    n = values.shape[0]
+    v, f = values, head
+    d = 1
+    while d < n:
+        cv = comb(v[:-d], v[d:])
+        nv = torch.where(f[d:], v[d:], cv)
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        v = torch.cat([v[:d], nv])
+        d <<= 1
+    return v
+
+
+def _lambda_comb(lam, dtype):
+    """A two-parameter combine lambda as an elementwise function of two
+    tensors, through the ordinary expression compiler."""
+    from velox_tpu_torch.expr.compiler import ExprSet
+    from velox_tpu_torch.types.types import row_type
+
+    a, b = lam.params
+    es = ExprSet([lam.body], row_type([a, b], [dtype, dtype]))
+
+    def comb(x, y):
+        v, _valid = es.evaluate({a: (x, None), b: (y, None)})[0]
+        return torch.broadcast_to(v, x.shape).to(x.dtype)
+
+    return comb
+
+
+def _reduce(big, spec, cols, gids, m, group_sel, out_cap):
+    """reduce_agg(x, init, (a, b) -> c): each group's non-NULL values
+    folded by the lambda (a segmented scan over the group runs), then
+    combined with ``init`` once; an empty group gives ``init``."""
+    av, avd = cols[spec.arg]
+    init_v, lam = spec.options
+    comb = _lambda_comb(lam, big.column(spec.arg).dtype)
+    perm, counts, starts = collect_runs(gids, _and_valid(m, avd))
+    sv = take(av, perm)
+    n = sv.shape[0]
+    head = torch.zeros(n + 1, dtype=torch.bool, device=sv.device)
+    head[torch.where(counts > 0, starts, torch.full_like(starts, n))] = True
+    scanned = _segmented_scan(sv, head[:n], comb)
+    red = take(scanned, (starts + counts - 1).clamp(0, n - 1))
+    init = torch.full_like(red, init_v)
+    vals = torch.where(counts > 0, comb(init, red), init)
+    return _pad(vals, out_cap), _pad(group_sel, out_cap)
+
+
 _COMPLEX_FINISH = {
     "array": _finish_array,
     "set": _finish_array,
@@ -348,6 +572,11 @@ _COMPLEX_FINISH = {
     "multimap": _finish_multimap,
     "map_union": _finish_map_union,
     "map_union_sum": _finish_map_union_sum,
+    "most_frequent": _finish_most_frequent,
+    "numeric_histogram": _finish_numeric_histogram,
+    "vector_sum": _finish_vector_sum,
+    "reservoir": _finish_reservoir,
+    "classification": _finish_classification,
 }
 
 

@@ -32,7 +32,10 @@ def maybe_fuse(chain: List[Operator]) -> List[Operator]:
     if not isinstance(chain[0], TableScanOp):
         return chain
     k = 1
-    while k < len(chain) and isinstance(chain[k], (FilterOp, ProjectOp)):
+    # a projection with an ARRAY/MAP/ROW form runs as its own operator:
+    # the fused stages evaluate scalar expressions only
+    while k < len(chain) and (isinstance(chain[k], FilterOp) or (
+            isinstance(chain[k], ProjectOp) and not chain[k]._forms)):
         k += 1
     # a streaming aggregation keeps its open group between batches and
     # emits per batch: it stays its own operator
@@ -166,3 +169,6 @@ class FusedScanAggOp(Operator):
 
     def is_finished(self) -> bool:
         return self._done and self.agg.is_finished()
+
+    def close(self) -> None:
+        self.agg.close()

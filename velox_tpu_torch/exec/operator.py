@@ -49,6 +49,15 @@ class Operator:
     def is_finished(self) -> bool:
         raise NotImplementedError
 
+    def close(self) -> None:
+        """Release buffered state (spill registrations, device and host
+        copies) when the task ends, so no query's leftovers count against
+        the next one's budget (velox Operator::close)."""
+        for attr in ("_buffer", "_probe_buf", "_store"):
+            buf = getattr(self, attr, None)
+            if buf is not None and hasattr(buf, "close"):
+                buf.close()
+
 
 ValuePair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 

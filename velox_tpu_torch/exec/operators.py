@@ -17,7 +17,11 @@ types with residual filters, ``MergeJoinBuildOp``,
 has a collect mode (``exec/collect_agg.py``) for the aggregates that need
 every value at finish. Each runs
 eagerly on the device its batches live on. Blocking operators buffer in
-plain lists; spill stores wait for a later slice. Where a size depends on
+the spill stores of ``exec/spill.py`` (``SpillableBuffer``,
+``PartitionedEntryStore``), which move to host RAM and on to page files
+under a memory budget; a spilled hash build is split by key hash and the
+probe joins one part at a time. ``EnforceSingleRowOp`` keeps a plain
+list. Where a size depends on
 the data (a join's match total, a batch's group count) the operator
 reads it on the host once, through ``utils/syncs.py``, which counts
 every such read.
@@ -45,6 +49,10 @@ from velox_tpu_torch.exec.complex_fns import (
     take, take_valid, union_codes,
 )
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
+from velox_tpu_torch.exec.spill import (
+    PartitionedEntryStore, SpillableBuffer, partition_batches,
+    restore_fragments,
+)
 from velox_tpu_torch.functions.aggregates import (
     _masked, init_lane, lookup_aggregate,
 )
@@ -714,9 +722,17 @@ class HashAggregationOp(Operator):
     ``tdigest_agg``, ``approx_set``, ``array_agg``, ``map_agg``, ...)
     takes the collect mode instead: it buffers its input batches and runs
     ``exec/collect_agg.finish_collect`` once over their concatenation. In
-    PARTIAL and FINAL steps ``approx_percentile`` runs its digest lanes;
-    the other collect aggregates raise there, and the ARRAY/MAP kinds of
-    ROADMAP A.2's slice 12 raise in every step.
+    PARTIAL and FINAL steps ``approx_percentile`` runs its digest lanes,
+    and a node whose aggregates are all ``array_agg``/``set_agg``/
+    ``map_agg`` takes the page form: PARTIAL collects each group's ARRAY
+    or MAP page as ``name$0``, and FINAL (one such aggregate) expands the
+    pages back into element rows and collects again. The other collect
+    aggregates raise there, as the reference's do.
+
+    The generic mode's partials go into a ``PartitionedEntryStore``
+    (``exec/spill.py``): under a memory budget they move to host RAM
+    split by a hash of the keys, and the output merges one partition a
+    call.
     """
 
     blocking = True
@@ -746,11 +762,31 @@ class HashAggregationOp(Operator):
             raise NotImplementedError(
                 "DISTINCT over multi-argument aggregates")
         self._collect = self._collect_specs()
+        #: a FINAL step of the page form: its input is the page column
+        #: ``name$0``, expanded into element rows ``name@e`` (a map's
+        #: ``name@k``/``name@v``)
+        self._collect_final = bool(self._collect) and \
+            self.step == AggStep.FINAL
+        #: a PARTIAL step of the page form names its page ``name$0``
+        self._collect_suffix = ("$0" if self._collect
+                                and self.step == AggStep.PARTIAL else "")
         in_schema = node.source.output_type
         self.arg_types: list = []
         #: FINAL: each aggregate's lane columns, one list per lane
         self.lane_names: List[List[List[str]]] = []
-        for s, name, fn in zip(self.specs, self.agg_names, self.fns):
+        for si, (s, name, fn) in enumerate(zip(self.specs, self.agg_names,
+                                               self.fns)):
+            if self._collect_final:
+                page_t = in_schema.find_child(f"{name}$0")
+                if fn.collect_kind == "map":
+                    arg = (f"{name}@k", f"{name}@v")
+                    self.arg_types.append((page_t.key, page_t.value))
+                else:
+                    arg = f"{name}@e"
+                    self.arg_types.append(page_t.element)
+                self.specs[si] = dataclasses.replace(s, arg=arg)
+                self.lane_names.append([])
+                continue
             if self.step == AggStep.FINAL:
                 groups = [[f"{name}${i}"] if lane.width == 1
                           else [f"{name}${i}@{j}" for j in range(lane.width)]
@@ -775,7 +811,10 @@ class HashAggregationOp(Operator):
             self.keys + [a for s in self.specs for a in self._arg_fields(s)]
             + [s.mask for s in self.specs if s.mask is not None]
             + [c for groups in self.lane_names for g in groups for c in g]))
-        self._entries: List[dict] = []  # generic partials to merge
+        #: generic partials to merge: on the device, or spilled to host
+        #: RAM split by key hash and merged one part a call
+        self._store = PartitionedEntryStore(f"agg:{node.id}")
+        self._pending_parts: Optional[List[list]] = None
         self._raw_batches: List[Batch] = []  # collect mode's input
         self._outputs: collections.deque = collections.deque()  # PARTIAL
         self._array_state: Optional[dict] = None
@@ -806,33 +845,31 @@ class HashAggregationOp(Operator):
         """The aggregates that run in collect mode (``exec/collect_agg.py``):
         in a SINGLE step every one with a collect kind. In PARTIAL and FINAL
         steps a collect aggregate with lanes (``approx_percentile``'s
-        digest) runs the lane machinery, and the others raise as the
+        digest) runs the lane machinery, ``array_agg``/``set_agg``/
+        ``map_agg`` alone take the page form, and the others raise as the
         reference's do."""
-        from velox_tpu_torch.functions.aggregates_collect import (
-            COMPLEX_KINDS, WAITING_KINDS,
-        )
-
-        for spec, fn in zip(self.specs, self.fns):
-            if fn.collect_kind in WAITING_KINDS:
-                raise NotImplementedError(
-                    f"{spec.fn} is not ported: it waits for ROADMAP A.2 "
-                    "(slice 12)")
-            if (fn.collect_kind in COMPLEX_KINDS
-                    and self.step != AggStep.SINGLE):
-                raise NotImplementedError(
-                    f"{spec.fn}: the PARTIAL page form of the ARRAY/MAP "
-                    "collect aggregates waits for ROADMAP A.2 (slice 12)")
         if self.step != AggStep.SINGLE:
-            if any(f.collect_kind is not None and not f.lanes
-                   for f in self.fns):
+            pure = [f for f in self.fns
+                    if f.collect_kind is not None and not f.lanes]
+            if not pure:
+                return []
+            if len(pure) != len(self.fns) or any(
+                    f.collect_kind not in ("array", "set", "map")
+                    for f in pure):
                 raise NotImplementedError(
                     "partial/final collect planning supports nodes whose "
                     "aggregates are ALL array_agg/set_agg/map_agg; other "
                     "collect aggregates (map_union, histogram, ...) are "
                     "single-step")
-            return []
-        collect = [i for i, f in enumerate(self.fns)
-                   if f.collect_kind is not None]
+            if self.step == AggStep.FINAL and len(self.fns) > 1:
+                raise NotImplementedError(
+                    "FINAL collect expansion supports one collect "
+                    "aggregate per node (element capacities differ per "
+                    "aggregate)")
+            collect = list(range(len(self.fns)))
+        else:
+            collect = [i for i, f in enumerate(self.fns)
+                       if f.collect_kind is not None]
         if any(self.specs[i].distinct for i in collect):
             raise NotImplementedError("DISTINCT over collect aggregates")
         return collect
@@ -840,7 +877,8 @@ class HashAggregationOp(Operator):
     def _arg_fields(self, spec) -> List[str]:
         """The input columns an aggregate reads (none in a FINAL step,
         which reads lane columns)."""
-        if spec.arg is None or self.step == AggStep.FINAL:
+        if spec.arg is None or (self.step == AggStep.FINAL
+                                and not self._collect_final):
             return []
         return list(spec.arg) if isinstance(spec.arg, tuple) else [spec.arg]
 
@@ -904,6 +942,8 @@ class HashAggregationOp(Operator):
         self.note_key_dicts(batch)
         if self._mode == "collect":
             self._device = batch.device
+            if self._collect_final:
+                batch = self._expand_collect_pages(batch)
             self._raw_batches.append(batch.project(self._needed))
             return
         self.add_columns(_cols_of(batch, self._needed), batch.sel)
@@ -928,6 +968,26 @@ class HashAggregationOp(Operator):
             gkeys, lanes, group_sel, dreps = self.make_generic_fn()(cols, sel)
             self.push_generic_entry(gkeys, lanes, group_sel, dreps)
             self._maybe_abandon(sel, group_sel)
+
+    def _expand_collect_pages(self, batch: Batch) -> Batch:
+        """A FINAL step of the page form: the page column's elements as
+        rows, each with its owning row's keys, so that the SINGLE step's
+        collect runs unchanged (velox addIntermediateResults)."""
+        from velox_tpu_torch.exec.collect_agg import element_owners
+
+        name = self.agg_names[0]
+        page = batch.column(f"{name}$0")
+        flat = page.keys if isinstance(page, MapColumn) else page.elements
+        owner, within = element_owners(page.starts, page.lengths,
+                                       flat.capacity)
+        sel = within & take(batch.sel, owner)
+        cols = {k: batch.column(k).gather(owner) for k in self.keys}
+        if isinstance(page, MapColumn):
+            cols[f"{name}@k"] = page.keys
+            cols[f"{name}@v"] = page.values
+        else:
+            cols[f"{name}@e"] = page.elements
+        return Batch(cols, sel)
 
     def note_key_dicts(self, batch_or_dicts) -> None:
         """Remember the first dictionary seen for each string key and
@@ -1116,7 +1176,7 @@ class HashAggregationOp(Operator):
         if self.step == AggStep.PARTIAL:
             self._outputs.append(self._partial_batch(entry))
         else:
-            self._entries.append(entry)
+            self._store.append(entry)
 
     # ---------------------------------------- adaptive partial aggregation
     def _maybe_abandon(self, sel, group_sel) -> None:
@@ -1173,17 +1233,25 @@ class HashAggregationOp(Operator):
             return self._outputs.popleft()
         if not self.no_more_input_seen or self._emitted:
             return None
-        self._emitted = True
-        if self._collect:
-            return self._finish_collect()
-        if self._mode == "array":
-            return self._finish_array()
-        if self.step == AggStep.PARTIAL:
+        if self._collect or self._mode == "array" \
+                or self.step == AggStep.PARTIAL:
+            self._emitted = True
+            if self._collect:
+                return self._finish_collect()
+            if self._mode == "array":
+                return self._finish_array()
             return None    # every batch's partials went out with it
-        if not self._entries:
-            return self._empty_result()
-        entries, self._entries = self._entries, []
-        return self._merge_entries(entries)
+        # generic: one part a call (spilled parts come back one at a time,
+        # the last first, as the reference's)
+        if self._pending_parts is None:
+            self._pending_parts = [p for p in self._store.partitions() if p]
+            if not self._pending_parts:
+                self._emitted = True
+                return self._empty_result()
+        part = self._pending_parts.pop()
+        if not self._pending_parts:
+            self._emitted = True
+        return self._merge_entries([self._store.to_device(e) for e in part])
 
     def _finish_collect(self) -> Batch:
         """Collect mode: every buffered batch concatenated, then one
@@ -1194,9 +1262,16 @@ class HashAggregationOp(Operator):
         batches, self._raw_batches = self._raw_batches, []
         if not batches:
             src = self.node.source.output_type
+            types = {n: src.find_child(n) for n in self._needed
+                     if n in src.names}
+            for spec, at in zip(self.specs, self.arg_types):
+                if self._collect_final:
+                    args = spec.arg if isinstance(spec.arg, tuple) \
+                        else (spec.arg,)
+                    ats = at if isinstance(at, tuple) else (at,)
+                    types.update(zip(args, ats))
             batches = [Batch.empty_like(
-                row_type(self._needed,
-                         [src.find_child(n) for n in self._needed]),
+                row_type(self._needed, [types[n] for n in self._needed]),
                 round_capacity(1), self._device or plan_device(self.node))]
         return finish_collect(self, concat_batches(batches))
 
@@ -1598,7 +1673,7 @@ class OrderByOp(Operator):
 
     def __init__(self, node):
         super().__init__(node)
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("orderby")
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
@@ -1608,7 +1683,7 @@ class OrderByOp(Operator):
         if not self.no_more_input_seen or self._emitted:
             return None
         self._emitted = True
-        batches, self._buffer = self._buffer, []
+        batches = self._buffer.drain()
         if not batches:
             return None
         big = concat_batches(batches)
@@ -1880,8 +1955,9 @@ class JoinBridge:
         #: (under the filter), OR-ed over probe batches and expansion
         #: chunks; read at the finish of right, full and right-semi joins
         self.matched: Optional[torch.Tensor] = None
-        #: a build spilled to host partitions (no spill in this port yet)
-        self.spill_parts = None
+        #: a spilled build: per hash part, its rows as host batches
+        #: (``HashBuildOp``); the probe joins one part at a time
+        self.spill_parts: Optional[List[List[Batch]]] = None
         self.on_ready: List[Callable] = []
 
     def mark_ready(self) -> None:
@@ -1901,7 +1977,7 @@ class HashBuildOp(Operator):
     def __init__(self, node, bridge: JoinBridge):
         super().__init__(node)
         self.bridge = bridge
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("hash_build")
         self._device: Optional[torch.device] = None
 
     def add_input(self, batch: Batch) -> None:
@@ -1913,7 +1989,20 @@ class HashBuildOp(Operator):
             return
         super().no_more_input()
         node = self.bridge.node
-        batches, self._buffer = self._buffer, []
+        if (self._buffer.has_spilled()
+                and type(self)._index_build is build_join_index):
+            # the build stays in host RAM split by key hash; the probe
+            # splits its side alike and joins one part at a time
+            # (velox/exec/Spill.h partitioning, one level)
+            from velox_tpu_torch.utils.config import config
+
+            self.bridge.spill_parts = partition_batches(
+                self._buffer.drain_host(), node.right_keys,
+                config.spill_join_partitions,
+                pin=self._device.type == "cuda")
+            self.bridge.mark_ready()
+            return
+        batches = self._buffer.drain()
         if batches:
             # a sparse build shrinks before its index is made: every probe
             # batch gathers from it (the count sync is skipped when known)
@@ -2043,6 +2132,14 @@ class HashProbeOp(Operator):
         self._pushdown_done = False
         self._build_null: Optional[bool] = None
         bridge.on_ready.append(self._on_build_ready)
+        #: over a spilled build: the buffered probe side, the parts left
+        #: to join, each part's probe rows, and whether a NULL build key
+        #: lies in any part
+        self._probe_buf: Optional[SpillableBuffer] = None
+        self._spill_pending: Optional[List[int]] = None
+        self._probe_parts: Optional[List[List[Batch]]] = None
+        self._spill_global_null = False
+        self._device: Optional[torch.device] = None
 
     def _on_build_ready(self) -> None:
         if not self._pushdown_done and self.pushdown_scan is not None:
@@ -2229,10 +2326,20 @@ class HashProbeOp(Operator):
         return Batch(cols, out_sel, n)
 
     def add_input(self, batch: Batch) -> None:
+        self._device = batch.device
+        if self.bridge.spill_parts is not None:
+            # a spilled build: buffer the probe side; the join runs one
+            # hash part at a time at the finish (velox HashProbe
+            # spillInput)
+            if self._probe_buf is None:
+                self._probe_buf = SpillableBuffer(
+                    f"join_probe:{self.node.id}")
+            self._probe_buf.append(batch)
+            return
+        self._probe_batch(batch)
+
+    def _probe_batch(self, batch: Batch) -> None:
         br = self.bridge
-        if br.spill_parts is not None:
-            raise NotImplementedError(
-                "probing a spilled join build is not ported yet")
         if not br.ready:
             raise RuntimeError("probe before the build finished")
         if not self._pushdown_done:
@@ -2360,6 +2467,16 @@ class HashProbeOp(Operator):
     def get_output(self) -> Optional[Batch]:
         if self._queue:
             return self._queue.popleft()
+        if (self.no_more_input_seen and self.bridge.spill_parts is not None
+                and not self._final_emitted):
+            if self._spill_pending is None:
+                self._prepare_spill_probe()
+            while self._spill_pending and not self._queue:
+                self._process_spill_partition(self._spill_pending.pop())
+            if self._queue:
+                return self._queue.popleft()
+            self._final_emitted = True
+            return None
         if (self.no_more_input_seen and not self._final_emitted
                 and self.jt in self._TRACK_MATCHED):
             self._final_emitted = True
@@ -2369,7 +2486,45 @@ class HashProbeOp(Operator):
     def is_finished(self) -> bool:
         if not self.no_more_input_seen or self._queue:
             return False
+        if self.bridge.spill_parts is not None:
+            return self._final_emitted
         return (self._final_emitted or self.jt not in self._TRACK_MATCHED)
+
+    # ------------------------------------------ a spilled build, by parts
+    def _prepare_spill_probe(self) -> None:
+        """Split the buffered probe side by the build's hash of the keys.
+        A NULL build key in any part counts for every part (the
+        null-aware anti join needs the whole build)."""
+        parts = self.bridge.spill_parts
+        self._pushdown_done = True
+        self._spill_global_null = any(
+            f.column(k).valid is not None and not bool(f.column(k).valid.all())
+            for part in parts for f in part for k in self.node.right_keys)
+        probe = [] if self._probe_buf is None else self._probe_buf.drain_host()
+        self._probe_parts = partition_batches(
+            probe, self.node.left_keys, len(parts),
+            pin=self._device is not None and self._device.type == "cuda")
+        self._spill_pending = list(range(len(parts)))
+
+    def _process_spill_partition(self, p: int) -> None:
+        """Join part ``p``: its build rows indexed on the device, its probe
+        rows probed; a right, full or right-semi join then emits the
+        part's build rows (matched flags are per part)."""
+        br, node = self.bridge, self.node
+        device = self._device or plan_device(node.right)
+        build = restore_fragments(br.spill_parts[p], device)
+        if build is None:
+            build = Batch.empty_like(node.right.output_type,
+                                     round_capacity(1), device)
+        build_bridge_state(br, node, build, build_join_index)
+        self._build_null = self._spill_global_null
+        probe = restore_fragments(self._probe_parts[p], device)
+        if probe is not None:
+            self._probe_batch(probe)
+        if self.jt in self._TRACK_MATCHED:
+            out = self._emit_build_side()
+            if out is not None:
+                self._queue.append(out)
 
 
 class MergeJoinBuildOp(HashBuildOp):
@@ -2424,7 +2579,7 @@ class CrossBuildOp(Operator):
     def __init__(self, node, bridge: JoinBridge):
         super().__init__(node)
         self.bridge = bridge
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("cross_build")
         self._device: Optional[torch.device] = None
 
     def add_input(self, batch: Batch) -> None:
@@ -2436,7 +2591,7 @@ class CrossBuildOp(Operator):
             return
         super().no_more_input()
         node = self.bridge.node
-        batches, self._buffer = self._buffer, []
+        batches = self._buffer.drain()
         if batches:
             big = concat_batches(batches)
         else:

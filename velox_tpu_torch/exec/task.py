@@ -176,6 +176,7 @@ class Task:
     """Owns one plan's execution (velox/exec/Task.h, serial mode)."""
 
     def __init__(self, plan: PlanNode):
+        from velox_tpu_torch.exec import memory
         from velox_tpu_torch.utils.config import config
 
         if config.optimize_plans:
@@ -183,18 +184,42 @@ class Task:
 
             plan = optimize_plan(plan)
         self.plan = plan
-        self.planner = LocalPlanner(plan)
+        # the query's pool: the buffers of the operators made under it
+        # hang off it (exec/memory.py; velox Task::pool)
+        self.pool = memory.MemoryPool(f"query.{plan.id}", memory.root_pool,
+                                      kind="query")
+        with memory.scoped_pool(self.pool):
+            self.planner = LocalPlanner(plan)
 
     def run(self) -> Iterator[Batch]:
-        for p in self.planner.pipelines:
-            if p.is_output:
-                continue
-            for _ in _stream(p.operators, len(p.operators) - 1):
+        from velox_tpu_torch.exec import memory
+        from velox_tpu_torch.utils.metrics import (
+            METRIC_TASK_EXECUTIONS, reporter,
+        )
+
+        reporter.add_counter(METRIC_TASK_EXECUTIONS)
+        # the pool stays ambient for buffers made mid-run (a spilled
+        # join's probe buffer)
+        token = memory._current.set(self.pool)
+        try:
+            for p in self.planner.pipelines:
+                if p.is_output:
+                    continue
+                for _ in _stream(p.operators, len(p.operators) - 1):
+                    pass
+                # the build sink publishes its bridge here
+                p.operators[-1].no_more_input()
+            ops = self.planner.operators
+            yield from _stream(ops, len(ops) - 1)
+        finally:
+            try:
+                memory._current.reset(token)
+            except ValueError:   # closed from another context (by GC)
                 pass
-            # the build sink publishes its bridge here
-            p.operators[-1].no_more_input()
-        ops = self.planner.operators
-        yield from _stream(ops, len(ops) - 1)
+            for p in self.planner.pipelines:
+                for op in p.operators:
+                    op.close()
+            self.pool.close()
 
 
 def run_plan(plan) -> Dict[str, List]:

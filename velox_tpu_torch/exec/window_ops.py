@@ -5,8 +5,10 @@ operators.
 The port of ``velox_tpu/exec/window_ops.py``. Window (velox/exec/Window.h)
 keeps the sort-once design (``ops/window.py``): one stable sort by
 (partition, order) keys, boundary masks, scans and gathers, then a
-scatter back to arrival order. Blocking operators buffer their input in
-a plain list, as the port's other blocking operators do (no spill yet).
+scatter back to arrival order. Blocking operators (Window, RowNumber,
+TopNRowNumber, MarkDistinct, LocalMerge) buffer their input in a
+``SpillableBuffer`` (``exec/spill.py``), which moves to host RAM and on
+to page files under a memory budget.
 ``UnnestOp`` explodes ARRAY columns. LocalPartition and TableWrite are
 not ported.
 """
@@ -24,6 +26,7 @@ from velox_tpu_torch.vector.batch import (
     Batch, concat_batches, harmonize_dictionaries, round_capacity,
 )
 from velox_tpu_torch.vector.column import Column
+from velox_tpu_torch.exec.spill import SpillableBuffer
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
 from velox_tpu_torch.exec.operators import _cols_of
 from velox_tpu_torch.ops.groupby import group_ids_sorted
@@ -106,9 +109,10 @@ def _prefix(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_zeros(1), torch.cumsum(x, 0, dtype=x.dtype)])
 
 
-def _drain(buffer: List[Batch]) -> Optional[Batch]:
-    batches = list(buffer)
-    buffer.clear()
+def _drain(buffer: SpillableBuffer, extra=()) -> Optional[Batch]:
+    """Every buffered batch (the spilled ones restored), then ``extra``,
+    as one batch."""
+    batches = buffer.drain() + list(extra)
     return concat_batches(batches) if batches else None
 
 
@@ -119,7 +123,7 @@ class WindowOp(Operator):
 
     def __init__(self, node):
         super().__init__(node)
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("window")
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
@@ -431,7 +435,7 @@ class RowNumberOp(Operator):
 
     def __init__(self, node):
         super().__init__(node)
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("row_number")
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
@@ -483,7 +487,7 @@ class MarkDistinctOp(Operator):
 
     def __init__(self, node):
         super().__init__(node)
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("mark_distinct")
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
@@ -642,7 +646,7 @@ class LocalMergeOp(Operator):
     def __init__(self, node, bridge: UnionBridge):
         super().__init__(node)
         self.bridge = bridge
-        self._buffer: List[Batch] = []
+        self._buffer = SpillableBuffer("local_merge")
         self._emitted = False
         self._names = list(node.output_type.names)
 
@@ -653,8 +657,8 @@ class LocalMergeOp(Operator):
         if not self.no_more_input_seen or self._emitted:
             return None
         self._emitted = True
-        self._buffer += [b.project(self._names) for b in self.bridge.batches]
-        big = _drain(self._buffer)
+        big = _drain(self._buffer, [b.project(self._names)
+                                    for b in self.bridge.batches])
         if big is None:
             return None
         keys = [(big.column(k.name).values, big.column(k.name).valid,

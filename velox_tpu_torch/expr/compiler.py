@@ -58,6 +58,7 @@ from velox_tpu_torch.expr.ir import (
 )
 from velox_tpu_torch.functions.registry import lookup_function
 from velox_tpu_torch.functions.scalar import DeviceTable
+from velox_tpu_torch.utils.tz import ZoneTable, zone_table
 
 
 
@@ -174,12 +175,30 @@ def resolve_types(expr: Expr, schema: RowType) -> Expr:
         if name in _DAY_PART_FNS or name in _TIME_PART_FNS:
             a0 = args[0]
             if a0.dtype is not None and a0.dtype.kind == TypeKind.TIMESTAMP:
+                # an argument that at_timezone or an earlier resolution
+                # already adjusted stays as it is
+                if not (isinstance(a0, Call) and a0.name in (
+                        "__tz_adjust", "__tz_unadjust")):
+                    a0 = _session_adjust(a0)
                 if name in _DAY_PART_FNS:
                     # day-granularity parts read DATE lanes: TIMESTAMP
                     # microseconds floor-divide to days first
                     a0 = Call(DATE, "__ts_days", (a0,))
                 rt = DATE if name == "last_day_of_month" else BIGINT
                 return Call(rt, name, (a0,) + args[1:])
+        if name in ("timezone_hour", "timezone_minute"):
+            return Call(BIGINT, f"__{name}", (args[0], _session_zone()))
+        if name in ("at_timezone", "with_timezone"):
+            # at_timezone shifts an instant to the zone's wall clock (there
+            # is no zone-carrying timestamp type, so the local instant is
+            # materialized); with_timezone reads a wall clock as local
+            if not (isinstance(args[1], Literal)
+                    and isinstance(args[1].value, str)):
+                raise TypeError(f"{name} zone must be a string literal")
+            impl = ("__tz_adjust" if name == "at_timezone"
+                    else "__tz_unadjust")
+            return Call(TIMESTAMP, impl, (args[0], Literal(
+                BIGINT, zone_table(args[1].value))))
         if name in ("date_trunc", "date_add", "date_diff"):
             return _resolve_unit_call(name, args)
 
@@ -326,6 +345,22 @@ _DAY_PART_FNS = {
 }
 #: parts of the time of day, which read TIMESTAMP lanes
 _TIME_PART_FNS = {"hour", "minute", "second", "millisecond"}
+
+
+def _session_zone() -> Literal:
+    from velox_tpu_torch.utils.config import config
+
+    return Literal(BIGINT, zone_table(config.session_timezone))
+
+
+def _session_adjust(a0: Expr) -> Expr:
+    """A TIMESTAMP expression read in the session zone (itself under a
+    UTC session)."""
+    from velox_tpu_torch.utils.config import config
+
+    if config.session_timezone.strip().upper() in ("UTC", "GMT", ""):
+        return a0
+    return Call(a0.dtype, "__tz_adjust", (a0, _session_zone()))
 
 
 def _navigate_row_field(schema: RowType, dotted: str):
@@ -2131,7 +2166,7 @@ class ExprSet:
                 expr.dtype.kind != TypeKind.UNKNOWN else np.int64
             hit = (torch.zeros((), dtype=torch_dtype(dt), device=device),
                    torch.zeros((), dtype=torch.bool, device=device))
-        elif isinstance(expr.value, DeviceTable):
+        elif isinstance(expr.value, (DeviceTable, ZoneTable)):
             # a table literal goes to its impl as it is: the impl picks
             # its form from the host values (functions/scalar.py)
             hit = (expr.value, None)

@@ -9,14 +9,13 @@ offsets. ``HashAggregationOp`` in mode "collect" buffers the raw rows and
 ``exec/collect_agg.py`` runs the helpers here once at finish.
 ``approx_percentile`` is exact over those runs.
 
-The kinds whose result is an ARRAY or a MAP run in a SINGLE step:
-``array_agg``, ``set_agg``, ``set_union``, ``map_agg``, ``multimap_agg``,
-``map_union``, ``map_union_sum`` and ``histogram``. The rest
-(``numeric_histogram``, ``approx_most_frequent``, ``vector_sum``,
-``reservoir_sample``, the ``classification_*`` family and ``reduce_agg``)
-register, so plans over them resolve as in the reference, and an operator
-that reaches one raises ``NotImplementedError`` naming ROADMAP A.2
-(slice 12), as does the PARTIAL page form of every ARRAY/MAP kind.
+The kinds whose result is an ARRAY or a MAP (``array_agg``, ``set_agg``,
+``set_union``, ``map_agg``, ``multimap_agg``, ``map_union``,
+``map_union_sum``, ``histogram``, ``numeric_histogram``,
+``approx_most_frequent``, ``vector_sum``, ``reservoir_sample``, the
+``classification_*`` family) and ``reduce_agg`` run in a SINGLE step;
+``array_agg``, ``set_agg`` and ``map_agg`` also have a PARTIAL/FINAL page
+form (``HashAggregationOp``).
 """
 
 from __future__ import annotations
@@ -31,19 +30,6 @@ from velox_tpu_torch.functions.aggregates import (
 from velox_tpu_torch.ops.sort import lex_sort
 from velox_tpu_torch.types import BIGINT, DOUBLE, VARBINARY
 from velox_tpu_torch.types.types import TypeKind, array, map_
-
-#: collect kinds whose results are ARRAY/MAP columns (or need a lambda)
-COMPLEX_KINDS = frozenset({
-    "array", "map", "multimap", "map_union", "set", "set_union",
-    "histogram", "map_union_sum", "reduce", "classification",
-    "vector_sum", "most_frequent", "numeric_histogram", "reservoir",
-})
-#: the ones not ported yet (ROADMAP A.2, slice 12)
-WAITING_KINDS = frozenset({
-    "reduce", "classification", "vector_sum", "most_frequent",
-    "numeric_histogram", "reservoir",
-})
-
 
 def _register_collect(name: str, kind: str, resolve_type) -> None:
     register_aggregate(AggregateFunction(

@@ -8,7 +8,8 @@ impl that takes either tells them apart by the lane's dtype, as the
 reference does. Civil dates are Howard Hinnant's days <-> civil
 algorithms in integer lanes; month arithmetic clamps to the month's last
 day. The compiler routes a TIMESTAMP argument of a day-granularity part
-through ``__ts_days``. The session time zone is UTC.
+through ``__ts_days``, after ``__tz_adjust`` under a session time zone
+that is not UTC (``config.session_timezone``, ``utils/tz.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from velox_tpu_torch import true_divide
 from velox_tpu_torch.types import BIGINT, DATE, DOUBLE, TIMESTAMP
 from velox_tpu_torch.functions.registry import ScalarFunction, register_function
+from velox_tpu_torch.utils.tz import offsets_at
 
 US_DAY = 86_400_000_000
 US_HOUR = 3_600_000_000
@@ -175,6 +177,44 @@ register_function(ScalarFunction(
     promote_args=False))
 # CAST(ts AS DATE) and the day parts of a TIMESTAMP
 register_function(ScalarFunction("__ts_days", lambda a: DATE, _ts_days))
+
+
+# ------------------------------------------------------------ time zones
+# A zone is a ZoneTable literal (utils/tz.py); the compiler wraps the
+# TIMESTAMP argument of a part in __tz_adjust under a session zone that
+# is not UTC, and binds at_timezone/with_timezone to these names.
+
+def _tz_adjust(ts, zone):
+    return ts + offsets_at(ts, zone)
+
+
+def _tz_unadjust(ts, zone):
+    """Wall clock -> instant: the offset at the wall-clock value stands
+    for the offset at the instant (one side of the hour around a DST
+    flip, as the reference picks)."""
+    return ts - offsets_at(ts, zone)
+
+
+def _tz_offset_part(div):
+    def impl(ts, zone):
+        off_s = torch.div(offsets_at(ts, zone), US_SEC, rounding_mode="floor")
+        mag = off_s.abs()
+        # toward zero: -05:30 is hour -5, minute -30 (Presto)
+        part = mag // 3600 if div == 3600 else (mag % 3600) // 60
+        return (torch.where(off_s < 0, -part, part)).to(torch.int64)
+    return impl
+
+
+register_function(ScalarFunction(
+    "__tz_adjust", lambda a: TIMESTAMP, _tz_adjust, promote_args=False))
+register_function(ScalarFunction(
+    "__tz_unadjust", lambda a: TIMESTAMP, _tz_unadjust, promote_args=False))
+register_function(ScalarFunction(
+    "__timezone_hour", lambda a: BIGINT, _tz_offset_part(3600),
+    promote_args=False))
+register_function(ScalarFunction(
+    "__timezone_minute", lambda a: BIGINT, _tz_offset_part(60),
+    promote_args=False))
 
 
 # ------------------------------------------------------- unit functions

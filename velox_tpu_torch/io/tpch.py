@@ -191,10 +191,27 @@ def _part_suppliers(partkeys: np.ndarray, i: np.ndarray, num_supp: int
 
 # ------------------------------------------------------------ lineitem
 
-def _lineitem(sf: float, seed: int):
+#: the last scale's lineitem draws, kept for the next caller at that
+#: scale: the Q1/Q6 columns in both money schemas and then the eight
+#: tables draw them once (``tpch_columns`` takes them out)
+_DRAWN: Dict[Tuple[float, int], tuple] = {}
+
+
+def _lineitem(sf: float, seed: int, keep: bool = True):
     """Lineitem's Q1/Q3/Q6/Q18 columns at scale ``sf``, each order's date
     and line count, and the part keys and receipt dates those draws
-    made."""
+    made; each call gets dicts of its own over the same arrays. With
+    ``keep`` the draws stay for the next call at this scale."""
+    key = (sf, seed)
+    drawn = _DRAWN.pop(key, None) or _draw_lineitem(sf, seed)
+    _DRAWN.clear()
+    if keep:
+        _DRAWN[key] = drawn
+    columns, odate, nlines, extra = drawn
+    return dict(columns), odate, nlines, dict(extra)
+
+
+def _draw_lineitem(sf: float, seed: int):
     rng = np.random.default_rng(seed)
     num_orders = int(1_500_000 * sf)
     num_part = int(200_000 * sf)
@@ -406,7 +423,7 @@ def tpch_columns(sf: float, seed: int,
     if not {"customer", "orders", "lineitem"} & set(want):
         return {t: out[t] for t in want}, dictionaries
 
-    lineitem, odate, nlines, extra = _lineitem(sf, seed)
+    lineitem, odate, nlines, extra = _lineitem(sf, seed, keep=False)
     rng = np.random.default_rng([seed, 1])
     num_orders = len(odate)
     num_cust = int(150_000 * sf)

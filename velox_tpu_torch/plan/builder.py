@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from velox_tpu_torch.types import BIGINT, BOOLEAN, DataType
 from velox_tpu_torch.types.types import RowType, row_type
-from velox_tpu_torch.expr.ir import Call, Expr, FieldRef
+from velox_tpu_torch.expr.ir import Call, Expr, FieldRef, Lambda, Literal
 from velox_tpu_torch.expr.parser import parse_expr
 from velox_tpu_torch.expr.compiler import resolve_types
 from velox_tpu_torch.functions.aggregates import lookup_aggregate
@@ -317,16 +317,22 @@ class PlanBuilder:
         for name, fn, fargs, distinct in _expand_wide(
                 [_parse_agg(a, f"a{i}") for i, a in enumerate(aggs)],
                 schema, masks):
-            if fn == "reduce_agg":
-                raise NotImplementedError(
-                    "reduce_agg is not ported: it waits for ROADMAP A.2 "
-                    "(slice 12)")
             if fn in ("max_data_size_for_stats", "sum_data_size_for_stats"):
                 # MaxSizeForStatsAggregate / SumDataSizeForStats: max or
                 # sum over the per-row serialized size
                 fargs = [Call(None, "data_size_for_stats", tuple(fargs))]
                 fn = fn.split("_data_size", 1)[0]
             lookup_aggregate(fn)  # validate early
+            options = None
+            if fn == "reduce_agg":
+                # reduce_agg(x, init, (a, b) -> combine): the init and the
+                # lambda stay on the host (spec.options); only the value
+                # expression becomes an input column
+                assert len(fargs) == 3 and isinstance(fargs[1], Literal) \
+                    and isinstance(fargs[2], Lambda), (
+                        "reduce_agg(x, init_literal, (a, b) -> expr)")
+                options = (fargs[1].value, fargs[2])
+                fargs = fargs[:1]
             fields: List[str] = []
             types: List[DataType] = []
             for ai, arg in enumerate(fargs):
@@ -355,7 +361,8 @@ class PlanBuilder:
             if mask is not None and mask not in pre_names:
                 pre_names.append(mask)
                 pre_exprs.append(resolve_types(FieldRef(None, mask), schema))
-            specs.append(AggregateSpec(fn, arg_field, mask, distinct))
+            specs.append(AggregateSpec(fn, arg_field, mask, distinct,
+                                       options))
             agg_names.append(name)
             arg_types.append(at)
 
@@ -372,6 +379,13 @@ class PlanBuilder:
         for name, spec, at in zip(agg_names, specs, arg_types):
             fn = lookup_aggregate(spec.fn)
             if step == AggStep.PARTIAL:
+                if fn.collect_kind in ("array", "set", "map") \
+                        and not fn.lanes:
+                    # the page form: the collected ARRAY/MAP as one page
+                    # column, which FINAL expands into element rows
+                    out_names.append(f"{name}$0")
+                    out_types.append(fn.resolve_type(at))
+                    continue
                 # one column per accumulator lane, ``name$lane``; a matrix
                 # lane one per slot, ``name$lane@slot``
                 for li, (lane, lt) in enumerate(

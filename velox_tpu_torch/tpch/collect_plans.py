@@ -34,11 +34,14 @@ the oracle's sorted runs, the readers the same functions over those
 blobs, and each reader the exact quantity within the digest's error
 (``READER_TOL``).
 
-**Set sketches**: ``approx_set(l_partkey)`` by ``l_suppkey`` (every
+**Set sketches**: ``approx_set(l_partkey)`` by ``l_suppkey`` over the
+first ``SUPPLIER_CUT`` suppliers (over all 100,000, the host wrote
+100,000 blobs in 3.6 s a run beside one H100, too long for the
+script's time limit; every
 blob equal to the registers built on the host over the same hash, and
 ``cardinality`` to ``sketch.py``'s estimate of it; the spread against
 the distinct counts is logged: a supplier holds about 80 distinct parts,
-where the estimate's own spread is about 1.6% and over 10^5 groups some
+where the estimate's own spread is about 1.6% and over many groups some
 lie past 3 of the asymptotic standard errors, 1.04 / sqrt(2048)) and
 keyless (within those 3 standard errors); ``make_set_digest(l_partkey)``
 by ``l_suppkey`` (the first ``SUPPLIER_CUT``) under the masks
@@ -146,9 +149,13 @@ def plan_digest_merge(pb):
 
 
 def plan_approx_set(pb, grouping: str):
+    """By ``l_suppkey``: the first ``SUPPLIER_CUT`` suppliers only."""
     keys = GROUPINGS[grouping]
-    return (_scan(pb, "lineitem", keys + ["l_partkey"])
-            .aggregate(keys, ["approx_set(l_partkey) AS hs", "count(*) AS n"])
+    scan = _scan(pb, "lineitem", keys + ["l_partkey"])
+    if grouping == "suppkey":
+        scan = scan.filter(f"l_suppkey <= {SUPPLIER_CUT}")
+    return (scan.aggregate(keys, ["approx_set(l_partkey) AS hs",
+                                  "count(*) AS n"])
             .project(keys + ["hs", "cardinality(hs) AS card", "n"]))
 
 

@@ -11,8 +11,10 @@ the device hashes over ``l_orderkey`` and ``l_partkey``), ``nulls``
 (``nullif(l_discount, 0.00)`` makes NULLs in about one row in eleven,
 fed to ``coalesce``, ``greatest``, ``least``, ``IS DISTINCT FROM`` and
 ``IS NULL``, under a filter with ``negate`` and ``%``), and
-``probability`` over ``part`` (its oracle is scipy, which the package
-does not import: the caller brings it). ``AGGREGATE`` sums integer
+``probability`` over the first ``PROBABILITY_PARTS`` rows of ``part``
+(500,000 of SF10's 2M, for the time limit of ``chip_smoke.py``; its
+oracle is scipy, which the package does not import: the caller brings
+it). ``AGGREGATE`` sums integer
 results of new functions grouped by ``l_returnflag, l_linestatus``,
 Q1's kArray keys, which under narrow lanes is one launch of the
 grouped-sum kernel B2 per split. ``TIMESTAMP_TABLE`` is a seeded table
@@ -207,8 +209,13 @@ def plan_nulls(pb):
         .filter(NULLS_FILTER).project(_project({**NULLS, **RANDOM})))
 
 
+#: the parts the probability family reads (``p_partkey`` 1..this)
+PROBABILITY_PARTS = 500_000
+
+
 def plan_probability(pb):
     return (pb().table_scan("part", columns=["p_partkey", "p_size"])
+            .filter(f"p_partkey <= {PROBABILITY_PARTS}")
             .project(["p_partkey", "p_size",
                       "CAST(p_size AS DOUBLE) AS s",
                       "(CAST(p_partkey % 9973 AS DOUBLE) + 0.5) / 9973.0 "

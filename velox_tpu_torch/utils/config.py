@@ -38,5 +38,32 @@ class SessionConfig:
     #: table instead of searching its sorted build keys
     karray_join_span: int = 1 << 26
 
+    #: session time zone (velox session_timezone with
+    #: adjust_timestamp_to_session_timezone): the parts of a TIMESTAMP
+    #: (hour, day, year, ...) read its instants in this zone
+    #: (utils/tz.py)
+    session_timezone: str = "UTC"
+
+    #: device bytes that the buffers of blocking operators may hold
+    #: before the largest moves to host RAM (exec/spill.py); None: no
+    #: limit
+    spill_memory_budget_bytes: "int | None" = None
+    #: device bytes that one query's buffers may hold before its own
+    #: largest moves to host RAM (exec/memory.py); None: no limit
+    query_memory_cap_bytes: "int | None" = None
+    #: hash partitions of a spilled aggregation's partials and of a
+    #: spilled join build; the output merges or joins one at a time
+    spill_agg_partitions: int = 8
+    spill_join_partitions: int = 8
+    #: host bytes of spilled batches beyond which the largest holder's
+    #: batches move to page files (the third rung); None: host RAM is
+    #: the last rung
+    spill_host_budget_bytes: "int | None" = None
+    #: threads that write page files in the background (0: the caller
+    #: writes them)
+    spill_io_threads: int = 2
+    #: directory of the page files (None: the system's temporary one)
+    spill_dir: "str | None" = None
+
 
 config = SessionConfig()

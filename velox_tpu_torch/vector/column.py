@@ -147,6 +147,24 @@ def _all_rows(cap: int, device) -> torch.Tensor:
     return torch.ones((cap,), dtype=torch.bool, device=device)
 
 
+def _referenced(col, num_rows, flats):
+    """An ARRAY or MAP column's first ``num_rows`` rows read back: their
+    validity and lengths, each row's start in ``flats``' values gathered
+    to the elements the live rows reference (in row order, so a large
+    element column is not read whole), and those values."""
+    starts = col.starts[:num_rows].cpu().numpy().astype(np.int64)
+    lengths = col.lengths[:num_rows].cpu().numpy().astype(np.int64)
+    valid = (None if col.valid is None
+             else col.valid[:num_rows].cpu().numpy())
+    live = np.maximum(lengths if valid is None
+                      else np.where(valid, lengths, 0), 0)
+    new_starts = np.cumsum(live) - live
+    idx = np.repeat(starts - new_starts, live) + np.arange(int(live.sum()))
+    it = torch.from_numpy(idx).to(col.starts.device)
+    return valid, lengths, new_starts, [f.gather(it).to_pylist()
+                                        for f in flats]
+
+
 @dataclass(frozen=True)
 class ArrayColumn:
     """ARRAY column: offsets into one flat element column.
@@ -179,11 +197,8 @@ class ArrayColumn:
                            _take_valid(self.valid, indices))
 
     def to_pylist(self, num_rows: Optional[int] = None) -> list:
-        starts = self.starts[:num_rows].cpu().numpy()
-        lengths = self.lengths[:num_rows].cpu().numpy()
-        elems = self.elements.to_pylist()
-        valid = (None if self.valid is None
-                 else self.valid[:num_rows].cpu().numpy())
+        valid, lengths, starts, (elems,) = _referenced(
+            self, num_rows, [self.elements])
         return [None if valid is not None and not valid[i]
                 else elems[starts[i]: starts[i] + lengths[i]]
                 for i in range(len(starts))]
@@ -219,12 +234,8 @@ class MapColumn:
                          self.values, _take_valid(self.valid, indices))
 
     def to_pylist(self, num_rows: Optional[int] = None) -> list:
-        starts = self.starts[:num_rows].cpu().numpy()
-        lengths = self.lengths[:num_rows].cpu().numpy()
-        ks = self.keys.to_pylist()
-        vs = self.values.to_pylist()
-        valid = (None if self.valid is None
-                 else self.valid[:num_rows].cpu().numpy())
+        valid, lengths, starts, (ks, vs) = _referenced(
+            self, num_rows, [self.keys, self.values])
         out = []
         for i in range(len(starts)):
             if valid is not None and not valid[i]:
