@@ -61,11 +61,17 @@ Phases (any failure ends the run with a nonzero exit code):
    as one JSON line (with each kernel's launches in every checked run of
    every phase), the card line, and last the device line
    ``{"ok": true, "device": {...}}``. Each phase logs its seconds.
+   Phases 9-15 read lineitem's first ``FAMILY_SPLITS`` (4) of its 8
+   splits, 33.5M of 60M rows, for the time limit: their oracles, result
+   copies and compares scale with the rows (the catalog's lineitem is
+   cut to those splits for them, and each check reads the same rows,
+   Q1's and Q6's oracles included).
 9. (run right after phase 5, while the TPC-H tables are on the card)
    the scalar functions (``velox_tpu_torch/tpch/scalar_plans.py``): the
    date, timestamp, math, bitwise and hash, NULL-function and ``rand``
    families projected over lineitem's 60M rows and the probability
-   family over 500,000 of part's 2M rows (for the time limit), each result
+   family over 500,000 of part's 2M rows (for the time limit; it is not
+   profiled), each result
    array checked element by element against its oracle computed on the
    host (numpy; scipy for
    probability), timed and profiled as the queries are; a seeded
@@ -156,7 +162,8 @@ Phases (any failure ends the run with a nonzero exit code):
    the queries are, with its blob-building seconds.
 14. (right after phase 13, on the same tables) the complex types
    (``velox_tpu_torch/tpch/complex_plans.py``, hash aggregations): P1
-   ``array_agg``/``set_agg`` by ``l_orderkey`` (15M arrays, 60M elements)
+   ``array_agg``/``set_agg`` by ``l_orderkey`` (8.4M arrays over the
+   first 4 splits' 33.5M rows)
    and one projection of ``cardinality``, ``array_sum``, ``contains``,
    ``element_at``, ``array_sort``, ``array_distinct``, ``transform``,
    ``any_match`` and ``filter``; P2 those arrays unnested WITH ORDINALITY
@@ -164,7 +171,7 @@ Phases (any failure ends the run with a nonzero exit code):
    ``l_orderkey`` with ``map_keys``, ``map_values``, ``element_at`` and
    ``map_filter``; P4 Q1's filter, ``array_agg`` by Q1's keys, unnest
    and the sum by the same keys under narrow lanes (Q1's
-   ``sum_base_price`` of phase 3's oracle; its B1/B2 launches recorded).
+   ``sum_base_price`` over the same rows; its B1/B2 launches recorded).
    P1-P3 are read as arrays (row lengths and flat elements in row order)
    and held against numpy exactly; each is timed and profiled as the
    queries are, with its host syncs and peak device memory.
@@ -187,11 +194,29 @@ Phases (any failure ends the run with a nonzero exit code):
    lineitem and W1, each run unspilled (its buffered peak read) and
    under a device budget of half that peak, at most 2 GiB, where it must
    spill and equal its unspilled run (as a multiset, row for row for the
-   OrderBy and W1); the full join a third time under a 1 GiB host budget,
-   where it must write page files to a temporary directory. It prints,
-   per plan, the warm walls without and with the budget, the spill events
-   and bytes to host and to files, the D2H and H2D GB/s (CUDA events)
-   and the peak device memory above the tables in both runs.
+   OrderBy and W1, whose batches go to the host as they come) and hold
+   less device memory: its peak above the tables must fall by at least
+   half the bytes it spilled (``PEAK_BOUNDED``: the partitioned spills
+   and, restored one key range at a time, the OrderBy and W1); the
+   OrderBy a third time under a host budget of a quarter of its spilled
+   bytes, where it must write page files to a temporary directory. It
+   prints, per plan, the warm walls without and with the budget, the
+   spill events and bytes to host and to files, the D2H and H2D GB/s
+   (CUDA events) and the peak device memory above the tables in both
+   runs.
+17. (right after phase 16, on the same tables) the multi-fragment
+   exchange (``velox_tpu_torch/tpch/exchange_plans.py``): F1, Q1 as a
+   PARTIAL fragment shuffled by its keys into four FINAL tasks in
+   memory, equal to phase 3's oracle after a sort by key, with B2 once a
+   split in the producer; its FINAL step's inputs traced
+   (``QueryTracer``) and replayed (``replay_operator``) to the same rows;
+   F2, Q18's inner ``sum(l_quantity)`` by ``l_orderkey`` the same way as
+   serialized pages with its consumer plan shipped through
+   ``plan_to_json``/``plan_from_json``; F3, F2 streamed through an 8 MiB
+   buffer in this process and over TCP on 127.0.0.1; F2 and F3 equal, as
+   multisets, to the single-task run of the same two steps. Per run: the
+   warm wall, host syncs, B1/B2 launches, pages and page bytes,
+   serialize and deserialize seconds, fetches and GB/s.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -816,36 +841,49 @@ def run_join_queries(card: str, times: dict, q1_q6) -> dict:
                          times[f"q{q}_cents"], card)
 
     more = run_more_queries(tables, dicts, card, times)
-    t0 = time.perf_counter()
-    scalar = run_scalar_families(tables, dicts, card, times)
-    log(f"phase 9 (scalar functions): {(time.perf_counter() - t0):.3f} s")
-    t0 = time.perf_counter()
-    strings = run_string_families(tables, dicts, card, times)
-    log(f"phase 10 (string functions): {(time.perf_counter() - t0):.3f} s")
-    t0 = time.perf_counter()
-    row_cache = {}
-    join_agg = run_join_agg(tables, dicts, card, times, row_cache)
-    log(f"phase 11 (joins and aggregates): "
-        f"{(time.perf_counter() - t0):.3f} s")
-    t0 = time.perf_counter()
-    agg_steps = run_agg_steps(tables, dicts, card, times, row_cache, q1_q6)
-    log(f"phase 12 (two-step and multi-argument aggregation): "
-        f"{(time.perf_counter() - t0):.3f} s")
-    t0 = time.perf_counter()
-    collect = run_collect(tables, dicts, card, times, row_cache)
-    del row_cache
-    log(f"phase 13 (collect aggregation, sketches, long decimals): "
-        f"{(time.perf_counter() - t0):.3f} s")
-    t0 = time.perf_counter()
-    complex_types = run_complex(tables, card, times, q1_q6[0])
-    log(f"phase 14 (complex types): {(time.perf_counter() - t0):.3f} s")
-    t0 = time.perf_counter()
-    collect_rest = run_collect_rest(tables, dicts, card, times)
-    log(f"phase 15 (collect kinds, page form, time zones, filters): "
-        f"{(time.perf_counter() - t0):.3f} s")
+    # phases 9-15 over lineitem's first FAMILY_SPLITS splits
+    with lineitem_head(tables, FAMILY_SPLITS) as li:
+        head = {**tables, "lineitem": li}
+        q1_q6_head = (q1_oracle(li, dicts), q6_oracle(li))
+        log(f"phases 9-15 read lineitem's first {FAMILY_SPLITS} splits: "
+            f"{len(li['l_orderkey'])} rows")
+        t0 = time.perf_counter()
+        scalar = run_scalar_families(head, dicts, card, times)
+        log(f"phase 9 (scalar functions): "
+            f"{(time.perf_counter() - t0):.3f} s")
+        t0 = time.perf_counter()
+        strings = run_string_families(head, dicts, card, times)
+        log(f"phase 10 (string functions): "
+            f"{(time.perf_counter() - t0):.3f} s")
+        t0 = time.perf_counter()
+        row_cache = {}
+        join_agg = run_join_agg(head, dicts, card, times, row_cache)
+        log(f"phase 11 (joins and aggregates): "
+            f"{(time.perf_counter() - t0):.3f} s")
+        t0 = time.perf_counter()
+        agg_steps = run_agg_steps(head, dicts, card, times, row_cache,
+                                  q1_q6_head)
+        log(f"phase 12 (two-step and multi-argument aggregation): "
+            f"{(time.perf_counter() - t0):.3f} s")
+        t0 = time.perf_counter()
+        collect = run_collect(head, dicts, card, times, row_cache)
+        del row_cache
+        log(f"phase 13 (collect aggregation, sketches, long decimals): "
+            f"{(time.perf_counter() - t0):.3f} s")
+        t0 = time.perf_counter()
+        complex_types = run_complex(head, card, times, q1_q6_head[0])
+        log(f"phase 14 (complex types): {(time.perf_counter() - t0):.3f} s")
+        t0 = time.perf_counter()
+        collect_rest = run_collect_rest(head, dicts, card, times)
+        del head
+        log(f"phase 15 (collect kinds, page form, time zones, filters): "
+            f"{(time.perf_counter() - t0):.3f} s")
     t0 = time.perf_counter()
     spilled = run_spill(card, times, q18_rows[True])
     log(f"phase 16 (spill, TPC-H): {(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    exchange = run_exchange(card, times, q1_q6[0])
+    log(f"phase 17 (exchange): {(time.perf_counter() - t0):.3f} s")
 
     for t in tables:
         drop_table(t)
@@ -868,7 +906,7 @@ def run_join_queries(card: str, times: dict, q1_q6) -> dict:
             "scalar": scalar, "strings": strings, "join_agg": join_agg,
             "agg_steps": agg_steps, "collect": collect,
             "complex": complex_types, "collect_rest": collect_rest,
-            "spill": spilled}
+            "spill": spilled, "exchange": exchange}
 
 
 #: the columns Q3 and Q18 read (the DOUBLE run registers only these)
@@ -1037,6 +1075,28 @@ def oracles_side_by_side(jobs: dict, label: str) -> dict:
     return out
 
 
+#: the lineitem splits (of 8) that phases 9-15 read: their host oracles,
+#: result copies and compares scale with the rows, and the time limit
+#: needs the room (the queries of phases 3-5 and phases 16-17 read all)
+FAMILY_SPLITS = 4
+
+
+@contextlib.contextmanager
+def lineitem_head(tables, splits: int):
+    """The catalog's lineitem cut to its first ``splits`` splits for the
+    block; yields the same rows of the generated arrays."""
+    from velox_tpu_torch.io.catalog import get_table
+
+    table = get_table("lineitem")
+    full = table.batches
+    rows = sum(b.num_rows for b in full[:splits])
+    table.batches = full[:splits]
+    try:
+        yield {c: v[:rows] for c, v in tables["lineitem"].items()}
+    finally:
+        table.batches = full
+
+
 def run_scalar_families(tables, dicts, card: str, times: dict,
                         device: str = "cuda") -> dict:
     """Phase 9, over the TPC-H tables that phase 4 registered (cents,
@@ -1063,7 +1123,7 @@ def run_scalar_families(tables, dicts, card: str, times: dict,
     from velox_tpu_torch.tpcds.window_plans import compare, result_arrays
     from velox_tpu_torch.tpch import scalar_plans as sp
 
-    def family(name, make, columns, oracle, tol):
+    def family(name, make, columns, oracle, tol, profile=True):
         t0 = time.perf_counter()
         want = oracle()
         oracle_s = time.perf_counter() - t0
@@ -1089,15 +1149,17 @@ def run_scalar_families(tables, dicts, card: str, times: dict,
         wall = wall_ms(drain)
         timed_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        busy = device_breakdown(drain, f"scalar_{name}", wall, card, top=5)
+        busy = (device_breakdown(drain, f"scalar_{name}", wall, card, top=5)
+                if profile else None)
         profile_s = time.perf_counter() - t0
         times[f"scalar_{name}"] = wall
+        share = "not profiled" if busy is None else busy / wall
         log(f"scalar {name}: {rows} rows, {len(columns)} columns equal to "
             f"the oracle ({oracle_s:.3f} s on the host, compared in "
             f"{compare_s:.3f} s; timed runs {timed_s:.3f} s, profiled run "
             f"{profile_s:.3f} s), {nulls} NULLs; "
             f"host syncs {run['syncs']}; warm wall {wall} ms, busy {busy} "
-            f"ms (share {busy / wall}); first checked run "
+            f"ms (share {share}); first checked run "
             f"{run['first_run_ms']} ms; peak device memory "
             f"{run['peak_gb']:.3f} GiB on {card}")
         return {"syncs": run["syncs"],
@@ -1113,17 +1175,19 @@ def run_scalar_families(tables, dicts, card: str, times: dict,
     out = {}
     for name, (make, columns) in sp.FAMILIES.items():
         if name == "probability":
-            # scipy holds the interpreter lock: one thread
-            oracle = (lambda: probability_oracle(  # noqa: E731
-                tables["part"]))
-            tol = PROB_TOL
-        else:
-            # the dates oracle is gathers, which hold the interpreter
-            # lock: it runs in one thread
-            oracle = (lambda o: lambda: o(li) if name == "dates"
-                      else chunked_oracle(o, li))(sp.ORACLES[name])
-            tol = {"rtol": SCALAR_RTOL}
-        out[name] = family(name, make, columns, oracle, tol)
+            # scipy holds the interpreter lock: one thread; its profiled
+            # run (18 s, launch-bound) is left out for the time limit
+            out[name] = family(
+                name, make, columns,
+                lambda: probability_oracle(tables["part"]), PROB_TOL,
+                profile=False)
+            continue
+        # the dates oracle is gathers, which hold the interpreter lock:
+        # it runs in one thread
+        oracle = (lambda o: lambda: o(li) if name == "dates"
+                  else chunked_oracle(o, li))(sp.ORACLES[name])
+        out[name] = family(name, make, columns, oracle,
+                           {"rtol": SCALAR_RTOL})
 
     ts_cols = sp.timestamp_table_columns(1 << 24, SEED)
     register_columns(sp.TIMESTAMP_TABLE, ts_cols, None, SPLIT_ROWS, None,
@@ -1996,7 +2060,8 @@ def run_complex(tables, card: str, times: dict, q1_rows) -> dict:
     """Phase 14, over the lineitem that phase 4 registered (cents,
     narrow lanes): ``velox_tpu_torch/tpch/complex_plans.py``'s plans as
     hash aggregations. P1-P3 are read as arrays and held against their
-    numpy oracles exactly; P4 against ``q1_rows`` (phase 3's Q1 oracle).
+    numpy oracles exactly; P4 against ``q1_rows`` (Q1's oracle over the
+    same lineitem rows).
     Each plan runs once with its host syncs, launches and peak memory
     counted, then is timed (median of warm runs) and profiled once.
     Returns, per plan, the counts and times."""
@@ -2284,13 +2349,13 @@ SPILL_BUDGET = 2 << 30
 SPILL_HOST_BUDGET = 1 << 30
 
 
-#: the phase-16 plans whose spill is partitioned (a generic aggregation's
-#: partials, a hash build), so that a spilled run holds one part on the
-#: card at a time: under the budget their peak above the tables must
-#: fall by at least half the bytes the spill moved to the host. OrderBy
-#: and the window family restore every batch before they compute
-#: (ROADMAP C9), so their peak does not fall and is only recorded.
-PEAK_BOUNDED = ("Q18 hash", "G agg by l_orderkey", "J full join")
+#: the spilled plans that hold one part of their state on the card at a
+#: time: a generic aggregation's partials and a hash build by hash part,
+#: the OrderBy and W1 by key range (``exec/spill.py`` RangeRestore). Under
+#: the budget their peak above the tables must fall by at least half the
+#: bytes the spill moved to the host.
+PEAK_BOUNDED = ("Q18 hash", "G agg by l_orderkey", "O orderby orders",
+                "J full join", "W1 window spill")
 
 
 def spill_run(label: str, drain, read, compare, card: str,
@@ -2372,15 +2437,15 @@ def spill_run(label: str, drain, read, compare, card: str,
         f"{base['syncs']} / {run['syncs']} on {card}")
     if file_run:
         d = tempfile.mkdtemp(prefix="velox-spill-")
+        host = min(SPILL_HOST_BUDGET, int(moved["spilled_bytes"]) // 4)
         try:
-            frun, fmoved, _ = spilled(host=SPILL_HOST_BUDGET, spill_dir=d)
+            frun, fmoved, _ = spilled(host=host, spill_dir=d)
         finally:
             shutil.rmtree(d, ignore_errors=True)
         check(fmoved["spill_file_bytes"] > 0,
-              f"{label}: no page file under a host budget of "
-              f"{SPILL_HOST_BUDGET} bytes")
-        res["file_run"] = {"run": frun, "moved": fmoved}
-        log(f"{label} (host budget {SPILL_HOST_BUDGET / 2**30:.0f} GiB): "
+              f"{label}: no page file under a host budget of {host} bytes")
+        res["file_run"] = {"run": frun, "moved": fmoved, "host_budget": host}
+        log(f"{label} (host budget {host / 2**30:.3f} GiB): "
             f"equal; {fmoved['spill_file_bytes'] / 2**30:.3f} GiB to page "
             f"files, first run {frun['first_run_ms']:.1f} ms on {card}")
     return res
@@ -2390,9 +2455,9 @@ def run_spill(card: str, times: dict, q18_rows) -> dict:
     """Phase 16 (TPC-H part), over the tables phase 4 registered, with
     ``optimize_plans`` off: Q18 (its result also against ``q18_rows``,
     its oracle), the generic aggregation by ``l_orderkey``, the OrderBy
-    of orders (row for row) and the full join (as multisets; its third
-    run under the host budget writes page files), each through
-    ``spill_run``."""
+    of orders (row for row; its third run under a host budget of a
+    quarter of its spilled bytes writes page files) and the full join
+    (as multisets), each through ``spill_run``."""
     from velox_tpu_torch.exec import run_plan
     from velox_tpu_torch.exec.task import Task
     from velox_tpu_torch.plan import PlanBuilder
@@ -2427,11 +2492,164 @@ def run_spill(card: str, times: dict, q18_rows) -> dict:
                 label, drain_of(plan),
                 lambda p=plan: sp.device_rows(Task(p)),
                 lambda g, w, o=ordered: sp.same_rows(g, w, o), card,
-                file_run=label.startswith("J"))
+                file_run=label.startswith("O"))
     finally:
         config.optimize_plans = optimize
     for label, r in out.items():
         times[f"{label} spilled"] = r["spilled_wall_ms"]
+    return out
+
+
+#: the exchange's counters a phase-17 run reads
+EXCHANGE_COUNTERS = {
+    "pages": "velox_tpu.exchange_pages",
+    "page_bytes": "velox_tpu.exchange_bytes",
+    "serialize_s": "velox_tpu.exchange_serialize_s",
+    "deserialize_s": "velox_tpu.exchange_deserialize_s",
+    "fetches": "velox_tpu.exchange_fetches",
+    "fetch_bytes": "velox_tpu.exchange_fetch_bytes",
+    "fetch_s": "velox_tpu.exchange_fetch_s",
+}
+
+
+def run_exchange(card: str, times: dict, q1_rows) -> dict:
+    """Phase 17, over the TPC-H tables of phase 4 (cents, narrow lanes):
+    the multi-fragment exchange (``velox_tpu_torch/tpch/exchange_plans.py``,
+    ``exec/fragments.py``). F1 runs Q1 as a PARTIAL fragment shuffled by
+    its keys into four FINAL tasks, in memory: its rows, sorted by key,
+    must equal phase 3's oracle, and B2 must launch once a split (in the
+    producer). F2 runs Q18's inner aggregation the same way through
+    serialized pages, its consumer plan shipped through
+    ``plan_to_json``/``plan_from_json``; F3 streams F2 through an 8 MiB
+    ``StreamingBufferManager``, once in this process and once over TCP on
+    127.0.0.1 (``ExchangeServer``, ``RemoteExchangeSource``): each must
+    equal the single-task run of the same two steps as a multiset. A
+    ``QueryTracer`` records F1's FINAL inputs, and ``replay_operator``
+    must give its rows again. Each run: its warm wall (median of 5, one
+    run past ``SLOW_RUN_MS``), host syncs, B1/B2 launches, pages and page
+    bytes, serialize and deserialize seconds, fetches and their GB/s."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from velox_tpu_torch.exec import fragments as fr
+    from velox_tpu_torch.exec.task import Task, collect_result
+    from velox_tpu_torch.io.catalog import get_table
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.plan.serde import plan_from_json, plan_to_json
+    from velox_tpu_torch.tpch import agg_step_plans as asp
+    from velox_tpu_torch.tpch import exchange_plans as xp
+    from velox_tpu_torch.tpch.spill_plans import batch_rows, same_rows
+    from velox_tpu_torch.utils.metrics import reporter
+    from velox_tpu_torch.utils.trace import QueryTracer, replay_operator
+
+    out = {}
+
+    def measured(label, run, verify, note):
+        before = reporter.snapshot()
+        got, counted = _peak_run(run)
+        moved = {k: reporter.counters[n] - before.get(n, 0)
+                 for k, n in EXCHANGE_COUNTERS.items()}
+        verify(got)
+        del got
+        wall = wall_ms(run)
+        times[f"exchange {label}"] = wall
+        rate = {k: (moved[b] / moved[s] / 1e9 if moved[s] else None)
+                for k, b, s in (("serialize_gb_s", "page_bytes",
+                                 "serialize_s"),
+                                ("deserialize_gb_s", "page_bytes",
+                                 "deserialize_s"),
+                                ("fetch_gb_s", "fetch_bytes", "fetch_s"))}
+        out[label] = {**counted, **moved, **rate, "wall_ms": wall}
+        log(f"{label}: {note}; warm wall {wall} ms; host syncs "
+            f"{counted['syncs']}, launches B1 {counted['grouped_sum_i32']} "
+            f"B2 {counted['grouped_multi_sum_i32']}; pages "
+            f"{moved['pages']:.0f}, page bytes {moved['page_bytes']:.0f}, "
+            f"serialize {moved['serialize_s']:.3f} s, deserialize "
+            f"{moved['deserialize_s']:.3f} s, fetches {moved['fetches']:.0f} "
+            f"({moved['fetch_bytes']:.0f} bytes in {moved['fetch_s']:.3f} s), "
+            f"GB/s {rate}; first run {counted['first_run_ms']:.1f} ms, peak "
+            f"above the tables {counted['above_tables_gb']:.3f} GiB on {card}")
+        return counted
+
+    # F1: Q1 in memory, against phase 3's oracle
+    f1 = xp.q1_fragments(PlanBuilder)
+    keys = ["l_returnflag", "l_linestatus"]
+
+    def by_key(got):
+        order = sorted(range(len(got["count_order"])),
+                       key=lambda i: tuple(got[k][i] for k in keys))
+        return {c: [v[i] for i in order] for c, v in got.items()}
+
+    splits = len(get_table("lineitem").batches)
+    counted = measured(
+        "F1 Q1 in memory", lambda: fr.run_fragments(f1),
+        lambda got: check_q1_cents(by_key(got), q1_rows),
+        f"{len(q1_rows)} groups equal to Q1's oracle after a sort by key")
+    check(counted["grouped_multi_sum_i32"] == splits
+          and counted["grouped_sum_i32"] == 0,
+          f"F1: B2 launched {counted['grouped_multi_sum_i32']} times, B1 "
+          f"{counted['grouped_sum_i32']}; want B2 once a split ({splits})")
+
+    # the trace of F1's FINAL step, replayed
+    d = tempfile.mkdtemp(prefix="velox-trace-")
+    try:
+        final = f1[1].plan
+        tracer = QueryTracer(d, [final.id])
+        t0 = time.perf_counter()
+        traced = fr.run_fragments(f1, tracer=tracer)
+        record_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replayed = collect_result(replay_operator(d, final),
+                                  final.output_type.names)
+        replay_s = time.perf_counter() - t0
+        inputs = len(tracer.recorded_inputs(final.id))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check_q1_cents(by_key(traced), q1_rows)
+    check(by_key(replayed) == by_key(traced),
+          "F1 trace: the replayed FINAL step differs from the traced run")
+    out["F1 trace"] = {"inputs": inputs, "record_s": record_s,
+                       "replay_s": replay_s}
+    log(f"F1 trace: {inputs} FINAL inputs recorded ({record_s:.3f} s "
+        f"with the tracer), replayed to the same {len(q1_rows)} rows in "
+        f"{replay_s:.3f} s on {card}")
+
+    # F2, F3: Q18's inner aggregation against its single-task run
+    want = batch_rows(Task(asp.plan_q18_inner(PlanBuilder).build()).run())
+    groups = int(want["l_orderkey"][0].shape[0])
+
+    def same_as_single(label):
+        def verify(batches):
+            bad = same_rows(batch_rows(batches), want, ordered=False)
+            check(not bad, f"{label}: differs from the single-task run: "
+                  f"{bad}")
+        return verify
+
+    f2 = xp.q18_inner_fragments(PlanBuilder)
+    t0 = time.perf_counter()
+    shipped = plan_from_json(plan_to_json(f2[1].plan))
+    ship_s = time.perf_counter() - t0
+    check(plan_to_json(shipped) == plan_to_json(f2[1].plan),
+          "F2: the shipped consumer plan differs")
+    f2 = [f2[0], fr.Fragment("B", shipped, num_tasks=f2[1].num_tasks,
+                             exchange_sources=f2[1].exchange_sources)]
+    measured("F2 Q18 inner as pages",
+             lambda: fr.fragment_batches(f2, serialize_pages=True),
+             same_as_single("F2"),
+             f"{groups} groups equal to the single-task run as a multiset; "
+             f"consumer plan shipped as JSON in {ship_s:.4f} s")
+    for transport in ("local", "tcp"):
+        label = f"F3 Q18 inner streamed ({transport})"
+        measured(label,
+                 lambda t=transport: fr.streaming_fragment_batches(
+                     f2, 8 << 20, transport=t),
+                 same_as_single(label),
+                 f"{groups} groups equal to the single-task run as a "
+                 f"multiset through an 8 MiB buffer")
+    del want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2699,7 +2917,8 @@ def run_window_plans(store_sales, card: str, times: dict) -> dict:
         torch.cuda.empty_cache()
 
     # phase 16's W1: the window's buffer under a device budget, row for
-    # row equal to its unspilled run (which equals its oracle, above)
+    # row equal to its unspilled run (which equals its oracle, above),
+    # restored one range of ss_store_sk at a time
     make, columns = PLANS["W1"]
     plan = make(PlanBuilder).build()
 
@@ -2707,10 +2926,11 @@ def run_window_plans(store_sales, card: str, times: dict) -> dict:
         for _ in Task(plan).run():
             pass
 
-    from velox_tpu_torch.tpch.spill_plans import device_rows, same_rows
+    from velox_tpu_torch.tpch.spill_plans import host_rows, same_rows
 
+    # its batches go to the host as they come: the peak is the window's
     out["W1 spill"] = spill_run(
-        "W1 window spill", drain, lambda: device_rows(Task(plan)),
+        "W1 window spill", drain, lambda: host_rows(Task(plan)),
         lambda g, w: same_rows(g, w, ordered=True), card)
     return out
 
@@ -2883,6 +3103,8 @@ def main() -> int:
                      if isinstance(r, dict)})
     by_query.update(joins["complex"])
     by_query.update(joins["collect_rest"])
+    by_query.update({k: r for k, r in joins["exchange"].items()
+                     if "grouped_sum_i32" in r})
     for label, r in list(joins["spill"].items()) + [
             ("W1 window", windows.pop("W1 spill"))]:
         by_query[f"{label} unspilled"] = r["unspilled"]
@@ -2917,6 +3139,7 @@ def main() -> int:
                       "complex": joins["complex"],
                       "collect_rest": joins["collect_rest"],
                       "spill": spill_runs,
+                      "exchange": joins["exchange"],
                       "rank_forms_ms": joins["rank_forms_ms"],
                       "tpcds_queries": ds, "window_plans": windows}))
     print(card)

@@ -20,11 +20,11 @@ eagerly on the device its batches live on. Blocking operators buffer in
 the spill stores of ``exec/spill.py`` (``SpillableBuffer``,
 ``PartitionedEntryStore``), which move to host RAM and on to page files
 under a memory budget; a spilled hash build is split by key hash and the
-probe joins one part at a time. ``EnforceSingleRowOp`` keeps a plain
-list. Where a size depends on
-the data (a join's match total, a batch's group count) the operator
-reads it on the host once, through ``utils/syncs.py``, which counts
-every such read.
+probe joins one part at a time, a spilled OrderBy sorts one range of its
+first key at a time (``blocking_output``). ``EnforceSingleRowOp`` keeps a
+plain list. Where a size depends on the data (a join's match total, a
+batch's group count) the operator reads it on the host once, through
+``utils/syncs.py``, which counts every such read.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ from velox_tpu_torch.ops.sortkey import encode_sort_key
 from velox_tpu_torch.expr.ir import Call, FieldRef, Literal
 from velox_tpu_torch.plan.nodes import AggregationNode, AggStep, JoinType
 from velox_tpu_torch.utils import syncs
+from velox_tpu_torch.utils.testvalue import TestValue
 
 #: string group keys that never saw input keep a (shared, empty)
 #: dictionary so downstream bind-time string work keeps working
@@ -151,7 +152,7 @@ class TableScanOp(Operator):
 
             # in-memory splits: the subfilter runs on the device
             self._splits_cache = collections.deque(
-                get_table(self.node.table).batches)
+                get_table(self.node.table).make_splits())
         return self._splits_cache
 
     def get_output(self) -> Optional[Batch]:
@@ -1194,6 +1195,7 @@ class HashAggregationOp(Operator):
         if self._rows_seen_cap < config.abandon_partial_agg_min_rows:
             return
         self._abandon_checked = True
+        TestValue.adjust("velox_tpu.agg.abandon_check", self)
         rows, groups = syncs.to_numpy(torch.stack(
             [sel.sum(), group_sel.sum()])).tolist()
         if rows > 0 and groups / rows >= config.abandon_partial_agg_min_pct:
@@ -1674,24 +1676,61 @@ class OrderByOp(Operator):
     def __init__(self, node):
         super().__init__(node)
         self._buffer = SpillableBuffer("orderby")
+        self._out = None
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
         self._buffer.append(batch)
 
     def get_output(self) -> Optional[Batch]:
-        if not self.no_more_input_seen or self._emitted:
-            return None
-        self._emitted = True
-        batches = self._buffer.drain()
-        if not batches:
-            return None
-        big = concat_batches(batches)
+        k = self.node.keys[0]
+        return next_blocking_output(self, lambda: blocking_output(
+            self._buffer, (k.name, k.descending, k.nulls_first),
+            self._sort, arrival_order=False))
+
+    def _sort(self, big: Batch) -> Batch:
         perm = sort_indices(_sort_keys(big, self.node.keys), big.sel)
         return big.gather(perm, big.sel.index_select(0, perm), big.num_rows)
 
     def is_finished(self) -> bool:
         return self.no_more_input_seen and self._emitted
+
+
+def blocking_output(buffer: SpillableBuffer, key, compute,
+                    arrival_order: bool):
+    """The batches a blocking operator emits from its buffer: unspilled,
+    ``compute`` of every batch at once; spilled, ``compute`` of one key
+    range of ``key`` at a time (``RangeRestore``), each range's result
+    in key order or, with ``arrival_order``, every buffered row again in
+    arrival order with the columns ``compute`` added."""
+    if not buffer.has_spilled():
+        batches = buffer.drain()
+        if batches:
+            yield compute(concat_batches(batches))
+        return
+    restore = buffer.drain_ranges(key)
+    try:
+        if arrival_order:
+            yield from restore.in_arrival_order(compute)
+        else:
+            for big, _ in restore.ranges():
+                yield compute(big)
+    finally:
+        restore.close()
+
+
+def next_blocking_output(op, make) -> Optional[Batch]:
+    """The next batch of a blocking operator's ``blocking_output`` (made
+    by ``make`` at the first call after its input ended); None at the
+    end, which also marks the operator emitted."""
+    if not op.no_more_input_seen or op._emitted:
+        return None
+    if op._out is None:
+        op._out = make()
+    b = next(op._out, None)
+    if b is None:
+        op._emitted = True
+    return b
 
 
 def _sort_keys(batch: Batch, fields) -> list:

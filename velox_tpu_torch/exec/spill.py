@@ -27,6 +27,18 @@ into ``config.spill_agg_partitions`` parts, and the output merges one
 part at a time. A spilled join build is split the same way by its keys
 (``partition_batches``), and the probe joins one part at a time.
 
+OrderBy, LocalMerge and the window family restore a spilled buffer one
+key range at a time (``SpillableBuffer.drain_ranges``, ``RangeRestore``):
+every buffered row goes to a range by the order-preserving encoding of
+the operator's first key (``ops/sortkey.py``) between splitters drawn
+from a sample, string codes first brought onto one sorted dictionary,
+so one key value never spans two ranges and the ranges concatenate in
+key order. The operator computes each range, emits it and frees it
+before the next range comes back; an operator whose output keeps
+arrival order reads each range's new columns back to the host and emits
+the buffered batches again in arrival order
+(``RangeRestore.in_arrival_order``).
+
 With no budget (the default) nothing here moves, copies or syncs.
 """
 
@@ -39,14 +51,27 @@ import numpy as np
 import torch
 
 from velox_tpu_torch.exec import memory as _mem
+from velox_tpu_torch.utils import syncs
 from velox_tpu_torch.utils.config import config
 from velox_tpu_torch.utils.metrics import reporter
-from velox_tpu_torch.vector.batch import Batch, concat_batches, round_capacity
+from velox_tpu_torch.utils.testvalue import TestValue
+from velox_tpu_torch.vector.batch import (
+    Batch, concat_batches, harmonize_dictionaries, round_capacity,
+)
 from velox_tpu_torch.vector.column import Column, MapColumn, RowColumn
 
 METRIC_SPILLED_BYTES = "velox_tpu.spilled_bytes"
 METRIC_SPILL_EVENTS = "velox_tpu.spill_events"
 METRIC_SPILL_FILE_BYTES = "velox_tpu.spill_file_bytes"
+#: key ranges a range restore brought back, and those larger than the
+#: device budget (one first-key value, or the NULLs, held more than it)
+METRIC_SPILL_RANGES = "velox_tpu.spill_ranges"
+METRIC_SPILL_RANGES_OVER_BUDGET = "velox_tpu.spill_ranges_over_budget"
+
+#: at most this many key ranges a restore
+_MAX_RANGES = 4096
+#: at most this many first-key values a restore samples for splitters
+_RANGE_SAMPLE = 1 << 16
 
 #: the one lock of the accounting tree and of every buffer's lists
 _LOCK = _mem.MemoryPool._lock
@@ -147,9 +172,13 @@ def transfer_stats() -> Dict[str, Tuple[int, float]]:
 # ----------------------------------------------------------- the rungs
 
 class _FileBatch:
-    """The disk rung: a batch as one uncompressed page file."""
+    """The disk rung: a batch as one uncompressed page file. The flat
+    columns' dictionaries stay in memory, not in the page: the process
+    that wrote the file reads it, and a restored column keeps its
+    dictionary object (a table's dictionary can hold millions of
+    strings, which a page header would write out each time)."""
 
-    __slots__ = ("path", "device")
+    __slots__ = ("path", "device", "dictionaries")
 
     def __init__(self, batch: Batch, device, spill_dir=None):
         import os
@@ -157,7 +186,15 @@ class _FileBatch:
 
         from velox_tpu_torch.serial import serialize_page
 
-        page = serialize_page(batch, compress=False)
+        self.dictionaries = {n: c.dictionary
+                             for n, c in batch.columns.items()
+                             if isinstance(c, Column)
+                             and c.dictionary is not None}
+        page = serialize_page(Batch(
+            {n: (dataclasses.replace(c, dictionary=None)
+                 if n in self.dictionaries else c)
+             for n, c in batch.columns.items()}, batch.sel, batch.num_rows),
+            compress=False)
         fd, self.path = tempfile.mkstemp(suffix=".spill", dir=spill_dir)
         with os.fdopen(fd, "wb") as f:
             f.write(page)
@@ -170,6 +207,8 @@ class _FileBatch:
         with open(self.path, "rb") as f:
             b = deserialize_page(f.read(), device or self.device)
         self.close()
+        for n, d in self.dictionaries.items():
+            b.columns[n] = dataclasses.replace(b.columns[n], dictionary=d)
         return b
 
     def close(self) -> None:
@@ -294,11 +333,14 @@ class SpillableBuffer:
         self._device: List[Batch] = []
         self._host: List[_HostBatch] = []
         self._files: List[object] = []
+        #: the device the batches came from, which a restore goes back to
+        self.home: Optional[torch.device] = None
         self.mm.register(self)
         self.pool = _leaf_pool(self, label, pool)
 
     def append(self, b: Batch) -> None:
         with _LOCK:
+            self.home = b.device
             self._device.append(b)
         self.pool.maybe_arbitrate()
         self.mm.maybe_reclaim()
@@ -315,6 +357,7 @@ class SpillableBuffer:
 
     def spill_all(self) -> None:
         """Move every device batch to host RAM."""
+        TestValue.adjust("velox_tpu.spill.spill_all", self)
         with _LOCK:
             for b in self._device:
                 hb = _HostBatch(b)
@@ -370,6 +413,12 @@ class SpillableBuffer:
         return ([fb.restore("cpu") for fb in files]
                 + [hb.batch for hb in host]
                 + [_HostBatch(b).batch for b in device])
+
+    def drain_ranges(self, key: Optional["RangeKey"]) -> "RangeRestore":
+        """Every buffered batch on the host, split by ranges of ``key``
+        (``RangeRestore``), for a restore one range at a time."""
+        TestValue.adjust("velox_tpu.spill.partitions", self)
+        return RangeRestore(self.drain_host(), key, self.home, self.label)
 
     def close(self) -> None:
         files, _, _ = self._take()
@@ -452,6 +501,7 @@ def partition_batches(batches: Sequence[Batch], keys: Sequence[str],
     hash to it, as dense host batches. A flat column is gathered once in
     part order (into pinned memory if ``pin``) and each part takes a
     slice of it."""
+    TestValue.adjust("velox_tpu.spill.partitions", batches)
     parts: List[List[Batch]] = [[] for _ in range(num_parts)]
     for hb in batches:
         sel = _host(hb.sel)
@@ -478,6 +528,231 @@ def restore_fragments(frags: Sequence[Batch], device) -> Optional[Batch]:
     total = sum(f.capacity for f in frags)
     return concat_batches([_copy_batch(f, device, "h2d") for f in frags],
                           round_capacity(max(total, 1)))
+
+
+#: (column, descending, nulls_first): the key a range restore routes by
+RangeKey = Tuple[str, bool, bool]
+
+
+def _range_budget() -> Optional[int]:
+    """The device budget a range restore sizes its ranges by."""
+    caps = [c for c in (config.spill_memory_budget_bytes,
+                        config.query_memory_cap_bytes) if c]
+    return min(caps) if caps else None
+
+
+def _key_values(col, key: RangeKey) -> Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]:
+    """The ``encode_sort_key`` value of a key column (int64) and its NULL
+    mask (None without NULLs)."""
+    from velox_tpu_torch.ops.sortkey import encode_sort_key
+
+    _, desc, nulls_first = key
+    ops = encode_sort_key(col.values, col.valid, descending=desc,
+                          nulls_first=nulls_first)
+    return ops[-1].to(torch.int64), None if col.valid is None else ~col.valid
+
+
+class RangeRestore:
+    """A spilled buffer's batches on the host, split by ranges of one key,
+    restored to the device one range at a time (the fix of C9 in ROADMAP
+    queue C: a spilled OrderBy or window no longer brings every batch
+    back at once).
+
+    String columns are first brought onto one sorted dictionary, so a
+    code's order is its string's order. Each live row goes to a range by
+    the ``encode_sort_key`` value of the key column (its direction and
+    NULL order as the operator sorts): splitters are quantiles of a
+    strided sample of the non-NULL values, so the ranges hold about the
+    budget's half each; every NULL goes to one range at its end of the
+    order. A row's range depends on the key value alone, so equal keys
+    meet, and rows keep their arrival order within a range. A range
+    larger than the budget (one value, or the NULLs, hold more) is
+    restored alone and counted (``METRIC_SPILL_RANGES_OVER_BUDGET``).
+
+    Each batch goes to the device once, alone (its bytes reserved in the
+    pool meanwhile), where its live rows are sorted stably by range and
+    copied back to host memory (pinned for a card) in that order, with
+    one host read of the range counts: a range is then one slice of each
+    batch, copied to the device without staging. While a range is on
+    the device its bytes are reserved in a leaf pool of the query, so
+    the pool tree sees it."""
+
+    def __init__(self, batches: Sequence[Batch], key: Optional[RangeKey],
+                 device, label: str = "range"):
+        batches = harmonize_dictionaries(
+            [b for b in batches if b.capacity])
+        self.device = device
+        self.pin = torch.device(device).type == "cuda"
+        self.budget = _range_budget()
+        self.pool = _mem.MemoryPool(f"{label}.restore",
+                                    _mem.current_pool() or _mem.root_pool)
+        total = sum(batch_device_bytes(b) for b in batches)
+        target = (self.budget // 2 if self.budget
+                  else -(-total // config.spill_agg_partitions))
+        wanted = min(_MAX_RANGES, max(1, -(-total // max(target, 1))))
+        splitters, self.num_ranges, null_range = None, 1, None
+        if key is not None and wanted > 1:
+            step = max(1, sum(b.capacity for b in batches) // _RANGE_SAMPLE)
+            sample, any_null = [], False
+            for b in batches:
+                c = b.column(key[0])
+                v, m = _key_values(
+                    dataclasses.replace(c, values=c.values[::step], valid=(
+                        None if c.valid is None else c.valid[::step])), key)
+                live = b.sel[::step] if m is None else b.sel[::step] & ~m
+                sample.append(v[live].numpy())
+                any_null |= m is not None and bool(
+                    (~c.valid & b.sel).any())
+            sample = np.sort(np.concatenate(sample))
+            spl = (np.unique(sample[(np.arange(1, wanted) * len(sample))
+                                    // wanted]) if len(sample) else sample)
+            k = len(spl) + 1
+            nulls_first = key[2]
+            splitters = (torch.from_numpy(spl).to(device),
+                         int(any_null and nulls_first))
+            self.num_ranges = k + int(any_null)
+            null_range = (0 if nulls_first else k) if any_null else None
+        #: per batch: its live rows in range order (host), each range's
+        #: [lo, hi) there, and the range-order row of each live row in
+        #: arrival order (``inv``, host)
+        self.parts = []
+        for b in batches:
+            held = batch_device_bytes(b)
+            self.pool.reserve(held)
+            try:
+                self.parts.append(self._split(b, key, splitters,
+                                              null_range))
+            finally:
+                self.pool.release(held)
+        self.offsets = np.cumsum([0] + [len(p[2]) for p in self.parts])
+
+    def _split(self, b: Batch, key, splitters, null_range):
+        nr = self.num_ranges
+        dev = _copy_batch(b, self.device, "h2d") if self.pin else b
+        sel = dev.sel
+        if splitters is None:
+            rid = torch.zeros(sel.shape[0], dtype=torch.int64,
+                              device=sel.device)
+        else:
+            spl, shift = splitters
+            v, m = _key_values(dev.column(key[0]), key)
+            rid = torch.searchsorted(spl, v, right=True) + shift
+            if m is not None and null_range is not None:
+                rid = torch.where(m, torch.full_like(rid, null_range), rid)
+        rid = torch.where(sel, rid, torch.full_like(rid, nr))
+        order = torch.sort(rid, stable=True).indices
+        counts = syncs.to_numpy(torch.bincount(rid, minlength=nr + 1)[:nr])
+        live = int(counts.sum())
+        order = order[:live]
+        rank = torch.cumsum(sel.to(torch.int64), 0) - 1
+        inv = torch.empty(live, dtype=torch.int64, device=sel.device)
+        inv[rank.index_select(0, order)] = torch.arange(
+            live, device=sel.device)
+        ordered = Batch({n: c.gather(order) for n, c in dev.columns.items()},
+                        torch.ones(live, dtype=torch.bool,
+                                   device=sel.device), live)
+        if self.pin:
+            ordered = _copy_batch(ordered, "cpu", "d2h")
+            inv = inv.cpu()
+        ends = np.cumsum(counts)
+        return (ordered.columns, list(zip([0] + ends[:-1].tolist(),
+                                          ends.tolist())), inv)
+
+    def _slice(self, j: int, lo: int, hi: int) -> Batch:
+        cols, _, _ = self.parts[j]
+        return Batch({n: _map_column(c, lambda t: t[lo:hi])
+                      if isinstance(c, Column) else c.gather(
+                          torch.arange(lo, hi))
+                      for n, c in cols.items()},
+                     torch.ones(hi - lo, dtype=torch.bool), hi - lo)
+
+    def ranges(self):
+        """Each non-empty range on the device, in key order: a batch of
+        its rows (dense, in arrival order) and where they come from, a
+        list of (batch, lo, hi) of the batches' range-order rows; held
+        in the pool until the next range."""
+        for r in range(self.num_ranges):
+            segs = [(j, lo, hi) for j, (_, bounds, _) in
+                    enumerate(self.parts) for lo, hi in [bounds[r]]
+                    if hi > lo]
+            if not segs:
+                continue
+            frags = [self._slice(j, lo, hi) for j, lo, hi in segs]
+            reporter.add_counter(METRIC_SPILL_RANGES)
+            if self.budget and sum(
+                    batch_device_bytes(f) for f in frags) > self.budget:
+                reporter.add_counter(METRIC_SPILL_RANGES_OVER_BUDGET)
+            big = restore_fragments(frags, self.device)
+            del frags
+            held = batch_device_bytes(big)
+            self.pool.reserve(held)
+            try:
+                yield big, segs
+            finally:
+                self.pool.release(held)
+                del big
+
+    def in_arrival_order(self, compute):
+        """``compute`` (a batch -> the same rows with new columns and a
+        narrowed selection) over every range, its new columns and
+        selection copied to host memory beside each row's batch; then
+        every buffered batch again, in arrival order, with them: the
+        rows, order and columns of ``compute`` over all the batches at
+        once (the window family's output)."""
+        total = int(self.offsets[-1])
+        new: Dict[str, list] = {}
+        keep = torch.ones(total, dtype=torch.bool, pin_memory=self.pin)
+
+        def host(like: torch.Tensor, fill=None) -> torch.Tensor:
+            t = torch.empty(total, dtype=like.dtype, pin_memory=self.pin)
+            return t if fill is None else t.fill_(fill)
+
+        for big, segs in self.ranges():
+            out = compute(big)
+            a = 0
+            for j, lo, hi in segs:
+                at = slice(int(self.offsets[j]) + lo,
+                           int(self.offsets[j]) + hi)
+                n = hi - lo
+                for name, col in out.columns.items():
+                    if big.columns.get(name) is col:
+                        continue
+                    ent = new.get(name)
+                    if ent is None:
+                        ent = new[name] = [col.dtype, host(col.values), None,
+                                           col.dictionary]
+                    ent[1][at].copy_(col.values[a:a + n],
+                                     non_blocking=self.pin)
+                    if col.valid is not None:
+                        if ent[2] is None:
+                            ent[2] = host(col.valid, True)
+                        ent[2][at].copy_(col.valid[a:a + n],
+                                         non_blocking=self.pin)
+                keep[at].copy_(out.sel[a:a + n], non_blocking=self.pin)
+                a += n
+            del out
+        for j, (_, bounds, inv) in enumerate(self.parts):
+            g, n = int(self.offsets[j]), len(inv)
+            b = self._slice(j, 0, n)
+            cols = dict(b.columns)
+            for name, (dt, vals, valid, d) in new.items():
+                cols[name] = Column(dt, vals[g:g + n], None if valid is None
+                                    else valid[g:g + n], d)
+            dev = _copy_batch(Batch(cols, keep[g:g + n], None), self.device,
+                              "h2d")
+            # back to arrival order, padded to a power-of-two capacity
+            cap = round_capacity(n)
+            idx = torch.zeros(cap, dtype=torch.int64)
+            idx[:n] = inv
+            idx = idx.to(self.device)
+            sel = dev.sel.index_select(0, idx)
+            sel[n:] = False
+            yield dev.gather(idx, sel)
+
+    def close(self) -> None:
+        self.parts = []
+        self.pool.close()
 
 
 def _entry_tensors(entry: dict) -> List[torch.Tensor]:
@@ -574,6 +849,7 @@ class PartitionedEntryStore:
             return sum(_entry_bytes(e) for e in self._device)
 
     def spill_all(self) -> None:
+        TestValue.adjust("velox_tpu.spill.spill_all", self)
         with _LOCK:
             for e in self._device:
                 he = self._to_host(e)
@@ -615,6 +891,7 @@ class PartitionedEntryStore:
         """Entry groups whose key sets are disjoint: unspilled, one group
         of the device entries; spilled, the remaining device entries are
         split too, and each non-empty part is a group."""
+        TestValue.adjust("velox_tpu.spill.partitions", self)
         with _LOCK:
             if not self.spilled:
                 out = [list(self._device)]

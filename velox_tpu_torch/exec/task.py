@@ -11,11 +11,19 @@ way, into a sink pipeline that buffers its batches for the union. Each
 chain is offered to ``maybe_fuse`` (``exec/fused.py``).
 ``run_plan`` returns the result as a dict of Python lists (there is no
 pyarrow): decimals as ``decimal.Decimal``, strings as ``str``.
+
+A node type outside the built-in set takes its operator from a factory:
+one registered for the process (``register_operator``), or one a Task
+is given for itself (``factories``; the exchange's operators, bound to
+their fragment's buffers, come this way). A ``tracer``
+(``utils/trace.py``) records the input batches of chosen nodes.
+``run_plan_grouped`` runs the output pipeline's splits in groups with a
+barrier between them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional
 
 from velox_tpu_torch.vector.batch import Batch
 from velox_tpu_torch.exec.operator import Operator
@@ -59,6 +67,25 @@ _SIMPLE_OPERATORS = {
     UnnestNode: UnnestOp,
 }
 
+#: node type -> factory(node) -> Operator, for node types outside the
+#: built-in set (velox/exec/Operator.h:452 translator registry)
+_OPERATOR_REGISTRY: Dict[type, Callable] = {}
+
+
+def register_operator(node_type: type, factory: Callable) -> None:
+    """Make ``factory(node)`` the operator of every ``node_type`` node."""
+    _OPERATOR_REGISTRY[node_type] = factory
+
+
+def make_operator(node) -> Operator:
+    """The operator of a single-source plan node alone (trace replay)."""
+    cls = _SIMPLE_OPERATORS.get(type(node))
+    if cls is None:
+        raise NotImplementedError(
+            f"replay unsupported for {type(node).__name__}")
+    return cls(node)
+
+
 #: join types whose probe can push a build-side filter into its scan:
 #: those that drop the probe rows without a match (left and full joins
 #: keep them, anti joins want them)
@@ -75,9 +102,11 @@ class Pipeline:
 class LocalPlanner:
     """Split the plan tree into pipelines (velox/exec/LocalPlanner.cpp)."""
 
-    def __init__(self, plan: PlanNode):
+    def __init__(self, plan: PlanNode,
+                 factories: Optional[Dict[type, Callable]] = None):
         from velox_tpu_torch.exec.fused import maybe_fuse
 
+        self.factories = factories or {}
         self.pipelines: List[Pipeline] = []
         chain = self._lower(plan)
         self.pipelines = [Pipeline(maybe_fuse(p.operators), p.is_output)
@@ -131,6 +160,12 @@ class LocalPlanner:
             chain = self._lower(node.left)
             chain.append(CrossProbeOp(node, bridge))
             return chain
+        factory = (self.factories.get(type(node))
+                   or _OPERATOR_REGISTRY.get(type(node)))
+        if factory is not None:
+            chain = self._lower(node.sources[0]) if node.sources else []
+            chain.append(factory(node))
+            return chain
         cls = _SIMPLE_OPERATORS.get(type(node))
         if cls is None:
             raise NotImplementedError(
@@ -141,8 +176,10 @@ class LocalPlanner:
         return chain
 
 
-def _stream(ops: List[Operator], i: int) -> Iterator[Batch]:
-    """Serial driver inner loop (velox/exec/Driver.cpp analog)."""
+def _stream(ops: List[Operator], i: int, tracer=None) -> Iterator[Batch]:
+    """The serial loop of one pipeline (velox/exec/Driver.cpp analog); a
+    ``tracer`` records the input of the operators of the nodes it wants
+    (velox/exec/Driver.cpp:600-611)."""
     op = ops[i]
     if i == 0:
         while not op.is_finished():
@@ -151,10 +188,12 @@ def _stream(ops: List[Operator], i: int) -> Iterator[Batch]:
                 break
             yield b
         return
-    upstream = _stream(ops, i - 1)
+    upstream = _stream(ops, i - 1, tracer)
     for b in upstream:
         if not op.needs_input():
             break
+        if tracer is not None and tracer.wants(op.node.id):
+            tracer.record(op.node.id, b)
         op.add_input(b)
         while True:
             out = op.get_output()
@@ -175,7 +214,8 @@ def _stream(ops: List[Operator], i: int) -> Iterator[Batch]:
 class Task:
     """Owns one plan's execution (velox/exec/Task.h, serial mode)."""
 
-    def __init__(self, plan: PlanNode):
+    def __init__(self, plan: PlanNode, tracer=None,
+                 factories: Optional[Dict[type, Callable]] = None):
         from velox_tpu_torch.exec import memory
         from velox_tpu_torch.utils.config import config
 
@@ -189,7 +229,8 @@ class Task:
         self.pool = memory.MemoryPool(f"query.{plan.id}", memory.root_pool,
                                       kind="query")
         with memory.scoped_pool(self.pool):
-            self.planner = LocalPlanner(plan)
+            self.planner = LocalPlanner(plan, factories)
+        self.tracer = tracer
 
     def run(self) -> Iterator[Batch]:
         from velox_tpu_torch.exec import memory
@@ -205,36 +246,99 @@ class Task:
             for p in self.planner.pipelines:
                 if p.is_output:
                     continue
-                for _ in _stream(p.operators, len(p.operators) - 1):
+                for _ in _stream(p.operators, len(p.operators) - 1,
+                                 self.tracer):
                     pass
                 # the build sink publishes its bridge here
                 p.operators[-1].no_more_input()
             ops = self.planner.operators
-            yield from _stream(ops, len(ops) - 1)
+            yield from _stream(ops, len(ops) - 1, self.tracer)
         finally:
             try:
                 memory._current.reset(token)
             except ValueError:   # closed from another context (by GC)
                 pass
-            for p in self.planner.pipelines:
-                for op in p.operators:
-                    op.close()
-            self.pool.close()
+            self.close()
+
+    def close(self) -> None:
+        """Close every operator and the query pool (a Task that never
+        ran, too)."""
+        for p in self.planner.pipelines:
+            for op in p.operators:
+                op.close()
+        self.pool.close()
 
 
-def run_plan(plan) -> Dict[str, List]:
-    """Execute and materialize the result as ``{column: [values]}``; the
-    digit lanes of a long decimal come back as one column of
-    ``decimal.Decimal`` values (``reassemble_wide``)."""
+def _build(plan) -> PlanNode:
     from velox_tpu_torch.plan.builder import PlanBuilder
 
-    if isinstance(plan, PlanBuilder):
-        plan = plan.build()
-    out: Dict[str, List] = {n: [] for n in plan.output_type.names}
-    for b in Task(plan).run():
+    return plan.build() if isinstance(plan, PlanBuilder) else plan
+
+
+def collect_result(batches, names) -> Dict[str, List]:
+    """Batches as ``{column: [values]}`` (``reassemble_wide`` applied)."""
+    out: Dict[str, List] = {n: [] for n in names}
+    for b in batches:
         for n, vals in b.to_pydict().items():
             out[n].extend(vals)
     return reassemble_wide(out)
+
+
+def run_plan(plan, tracer=None) -> Dict[str, List]:
+    """Execute and materialize the result as ``{column: [values]}``; the
+    digit lanes of a long decimal come back as one column of
+    ``decimal.Decimal`` values (``reassemble_wide``)."""
+    plan = _build(plan)
+    return collect_result(Task(plan, tracer).run(), plan.output_type.names)
+
+
+def _leaf_scan(task: Task) -> Optional[TableScanOp]:
+    """The TableScan that starts the output pipeline (inside a fused
+    operator, too), or None."""
+    for op in task.planner.operators:
+        if isinstance(op, TableScanOp):
+            return op
+        inner = getattr(op, "scan", None)
+        if isinstance(inner, TableScanOp):
+            return inner
+    return None
+
+
+def run_plan_grouped(plan, num_groups: int, tracer=None
+                     ) -> Iterator[Dict[str, List]]:
+    """Grouped execution (velox/core/PlanFragment.h
+    groupedExecutionLeafNodeIds with exec/Task.h:215 barriers): the
+    output pipeline's leaf splits run in ``num_groups`` groups, split
+    ``i`` in group ``i % num_groups``, one Task a group, with a barrier
+    (``velox_tpu.task_barriers``) between groups. A blocking operator's
+    state lives within one group, so the caller must bucket the table so
+    that no grouping or join key spans two groups; scans, filters and
+    projections are always safe. Yields one ``{column: [values]}`` a
+    group that emitted a batch, as the group finishes."""
+    from velox_tpu_torch.utils.metrics import METRIC_TASK_BARRIERS, reporter
+
+    plan = _build(plan)
+    probe = Task(plan, tracer)
+    try:
+        scan = _leaf_scan(probe)
+        if scan is None:
+            raise ValueError("grouped execution needs a leaf TableScan in "
+                             "the output pipeline")
+        splits = list(scan._splits)
+    finally:
+        probe.close()
+    for g in range(num_groups):
+        group = splits[g::num_groups]
+        if not group:
+            continue
+        task = Task(plan, tracer)
+        scan = _leaf_scan(task)
+        scan._splits.clear()
+        scan._splits.extend(group)
+        batches = list(task.run())
+        reporter.add_counter(METRIC_TASK_BARRIERS)
+        if batches:
+            yield collect_result(batches, plan.output_type.names)
 
 
 def reassemble_wide(out: Dict[str, List]) -> Dict[str, List]:

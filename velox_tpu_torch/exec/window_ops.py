@@ -8,7 +8,9 @@ keeps the sort-once design (``ops/window.py``): one stable sort by
 scatter back to arrival order. Blocking operators (Window, RowNumber,
 TopNRowNumber, MarkDistinct, LocalMerge) buffer their input in a
 ``SpillableBuffer`` (``exec/spill.py``), which moves to host RAM and on
-to page files under a memory budget.
+to page files under a memory budget; a spilled buffer comes back one
+range of the first partition (or sort, or distinct) key at a time
+(``operators.blocking_output``).
 ``UnnestOp`` explodes ARRAY columns. LocalPartition and TableWrite are
 not ported.
 """
@@ -28,7 +30,9 @@ from velox_tpu_torch.vector.batch import (
 from velox_tpu_torch.vector.column import Column
 from velox_tpu_torch.exec.spill import SpillableBuffer
 from velox_tpu_torch.exec.operator import ExprEvaluator, Operator
-from velox_tpu_torch.exec.operators import _cols_of
+from velox_tpu_torch.exec.operators import (
+    _cols_of, blocking_output, next_blocking_output,
+)
 from velox_tpu_torch.ops.groupby import group_ids_sorted
 from velox_tpu_torch.ops.sort import pack_indices, sort_indices
 from velox_tpu_torch.ops.sortkey import encode_sort_key
@@ -109,11 +113,11 @@ def _prefix(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_zeros(1), torch.cumsum(x, 0, dtype=x.dtype)])
 
 
-def _drain(buffer: SpillableBuffer, extra=()) -> Optional[Batch]:
-    """Every buffered batch (the spilled ones restored), then ``extra``,
-    as one batch."""
-    batches = buffer.drain() + list(extra)
-    return concat_batches(batches) if batches else None
+def _first_key(names) -> Optional[tuple]:
+    """The range key of a spilled window-family buffer: its first
+    partition (or distinct) key, ascending, NULLs last, so that one
+    partition never spans two ranges."""
+    return (names[0], False, False) if names else None
 
 
 class WindowOp(Operator):
@@ -124,17 +128,16 @@ class WindowOp(Operator):
     def __init__(self, node):
         super().__init__(node)
         self._buffer = SpillableBuffer("window")
+        self._out = None
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
         self._buffer.append(batch)
 
     def get_output(self) -> Optional[Batch]:
-        if not self.no_more_input_seen or self._emitted:
-            return None
-        self._emitted = True
-        big = _drain(self._buffer)
-        return None if big is None else self._evaluate(big)
+        return next_blocking_output(self, lambda: blocking_output(
+            self._buffer, _first_key(self.node.partition_keys),
+            self._evaluate, arrival_order=True))
 
     def needed_columns(self) -> list:
         node = self.node
@@ -436,6 +439,7 @@ class RowNumberOp(Operator):
     def __init__(self, node):
         super().__init__(node)
         self._buffer = SpillableBuffer("row_number")
+        self._out = None
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
@@ -451,12 +455,12 @@ class RowNumberOp(Operator):
         return torch.empty_like(rn_sorted).index_copy_(0, perm, rn_sorted)
 
     def _limited(self, sort_keys, limit) -> Optional[Batch]:
-        if not self.no_more_input_seen or self._emitted:
-            return None
-        self._emitted = True
-        big = _drain(self._buffer)
-        if big is None:
-            return None
+        return next_blocking_output(self, lambda: blocking_output(
+            self._buffer, _first_key(self.node.partition_keys),
+            lambda big: self._numbered(big, sort_keys, limit),
+            arrival_order=True))
+
+    def _numbered(self, big: Batch, sort_keys, limit) -> Batch:
         node = self.node
         rn = self._rn(big, node.partition_keys, sort_keys)
         sel = big.sel if limit is None else big.sel & (rn <= limit)
@@ -488,18 +492,18 @@ class MarkDistinctOp(Operator):
     def __init__(self, node):
         super().__init__(node)
         self._buffer = SpillableBuffer("mark_distinct")
+        self._out = None
         self._emitted = False
 
     def add_input(self, batch: Batch) -> None:
         self._buffer.append(batch)
 
     def get_output(self) -> Optional[Batch]:
-        if not self.no_more_input_seen or self._emitted:
-            return None
-        self._emitted = True
-        big = _drain(self._buffer)
-        if big is None:
-            return None
+        return next_blocking_output(self, lambda: blocking_output(
+            self._buffer, _first_key(self.node.keys), self._mark,
+            arrival_order=True))
+
+    def _mark(self, big: Batch) -> Batch:
         node = self.node
         cap = big.capacity
         cols = _cols_of(big, list(node.keys))
@@ -647,6 +651,7 @@ class LocalMergeOp(Operator):
         super().__init__(node)
         self.bridge = bridge
         self._buffer = SpillableBuffer("local_merge")
+        self._out = None
         self._emitted = False
         self._names = list(node.output_type.names)
 
@@ -654,13 +659,19 @@ class LocalMergeOp(Operator):
         self._buffer.append(batch.project(self._names))
 
     def get_output(self) -> Optional[Batch]:
-        if not self.no_more_input_seen or self._emitted:
-            return None
-        self._emitted = True
-        big = _drain(self._buffer, [b.project(self._names)
-                                    for b in self.bridge.batches])
-        if big is None:
-            return None
+        return next_blocking_output(self, self._merged_output)
+
+    def _merged_output(self):
+        # the other sources' batches after this one's, as unspilled
+        for b in self.bridge.batches:
+            self._buffer.append(b.project(self._names))
+        self.bridge.batches = []
+        k = self.node.keys[0]
+        return blocking_output(self._buffer,
+                               (k.name, k.descending, k.nulls_first),
+                               self._sort, arrival_order=False)
+
+    def _sort(self, big: Batch) -> Batch:
         keys = [(big.column(k.name).values, big.column(k.name).valid,
                  k.descending, k.nulls_first) for k in self.node.keys]
         perm = sort_indices(keys, big.sel)

@@ -37,6 +37,7 @@ from velox_tpu_torch.types import (
     TINYINT, VARCHAR,
 )
 from velox_tpu_torch.types.types import DataType, DecimalType, RowType, TypeKind
+from velox_tpu_torch.utils.testvalue import TestValue
 from velox_tpu_torch.vector.batch import Batch
 from velox_tpu_torch.vector.column import Column, Dictionary
 
@@ -63,6 +64,12 @@ class Table:
     @property
     def num_rows(self) -> int:
         return sum(b.num_rows or 0 for b in self.batches)
+
+    def make_splits(self) -> List[Batch]:
+        """The splits of one TableScan (an injection point: a test can
+        fail a read here, as the JAX package's file splits can)."""
+        TestValue.adjust("velox_tpu.scan.read_split", self)
+        return list(self.batches)
 
 
 _TABLES: Dict[str, Table] = {}

@@ -12,10 +12,11 @@ rows come out). W1 (``tpcds/window_plans.py``) runs over TPC-DS's
 store_sales. Every plan runs with ``optimize_plans`` off.
 
 A result is read on the device (``device_rows``): each column's live
-rows, concatenated. ``same_rows`` compares two results row for row, or
-as multisets after one lexicographic sort of every column
-(``canonical``); DOUBLE columns to a relative tolerance, the rest
-exactly.
+rows, concatenated; or on the host batch by batch (``host_rows``, W1's
+reading, so that its peak measures the window, not the result).
+``same_rows`` compares two results row for row, or as multisets after
+one lexicographic sort of every column (``canonical``); DOUBLE columns
+to a relative tolerance, the rest exactly.
 """
 
 from __future__ import annotations
@@ -61,15 +62,31 @@ Rows = Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 def device_rows(task) -> Rows:
     """Each column's live rows of a task's result, on its device."""
+    return batch_rows(task.run())
+
+
+def host_rows(task) -> Rows:
+    """``device_rows`` on the host: each batch's live rows copied there
+    as the batch comes, so no result is held on the card."""
+    return batch_rows(task.run(), host=True)
+
+
+def batch_rows(batches, host: bool = False) -> Rows:
+    """Each column's live rows of ``batches``, concatenated (on the host
+    with ``host``)."""
     from velox_tpu_torch.utils.syncs import nonzero
 
+    def take(t, idx):
+        t = t.index_select(0, idx)
+        return t.cpu() if host else t
+
     parts: Dict[str, List[tuple]] = {}
-    for b in task.run():
+    for b in batches:
         idx = nonzero(b.sel)
         for n, c in b.columns.items():
             parts.setdefault(n, []).append((
-                c.values.index_select(0, idx),
-                None if c.valid is None else c.valid.index_select(0, idx)))
+                take(c.values, idx),
+                None if c.valid is None else take(c.valid, idx)))
     out: Rows = {}
     for n, ps in parts.items():
         vals = torch.cat([v for v, _ in ps])

@@ -6,7 +6,9 @@ StatsReporter.h): named counters recorded through one in-process
 reporter, which tests and ``chip_smoke.py`` read. Spill writes
 ``velox_tpu.spilled_bytes``, ``velox_tpu.spill_events`` and
 ``velox_tpu.spill_file_bytes`` (``exec/spill.py``); the task
-``METRIC_TASK_EXECUTIONS``.
+``METRIC_TASK_EXECUTIONS``, grouped execution ``METRIC_TASK_BARRIERS``,
+the exchange its pages, bytes and seconds (``exec/fragments.py``,
+``exec/exchange_net.py``).
 """
 
 from __future__ import annotations
@@ -40,3 +42,4 @@ reporter = StatsReporter()
 
 #: named metrics the engine records (velox/common/base/Counters.h analog)
 METRIC_TASK_EXECUTIONS = "velox_tpu.task_executions"
+METRIC_TASK_BARRIERS = "velox_tpu.task_barriers"
