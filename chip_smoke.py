@@ -191,13 +191,15 @@ Phases (any failure ends the run with a nonzero exit code):
    spill (``velox_tpu_torch/tpch/spill_plans.py``, ``optimize_plans``
    off): Q18 (also against its oracle), a generic aggregation by
    ``l_orderkey``, an OrderBy of orders, a full join of orders to
-   lineitem and W1, each run unspilled (its buffered peak read) and
+   lineitem, a cross join of 400 parts to every supplier under a filter
+   and W1, each run unspilled (its buffered peak read) and
    under a device budget of half that peak, at most 2 GiB, where it must
    spill and equal its unspilled run (as a multiset, row for row for the
    OrderBy and W1, whose batches go to the host as they come) and hold
    less device memory: its peak above the tables must fall by at least
-   half the bytes it spilled (``PEAK_BOUNDED``: the partitioned spills
-   and, restored one key range at a time, the OrderBy and W1); the
+   half the bytes it spilled (``PEAK_BOUNDED``: the partitioned spills,
+   the OrderBy and W1 restored one key range at a time, the cross join's
+   build one chunk at a time); the
    OrderBy a third time under a host budget of a quarter of its spilled
    bytes, where it must write page files to a temporary directory. It
    prints, per plan, the warm walls without and with the budget, the
@@ -217,6 +219,23 @@ Phases (any failure ends the run with a nonzero exit code):
    multisets, to the single-task run of the same two steps. Per run: the
    warm wall, host syncs, B1/B2 launches, pages and page bytes,
    serialize and deserialize seconds, fetches and GB/s.
+18. (right after phase 17, on the same tables) distributed execution
+   (``velox_tpu_torch/parallel``) on one mesh of 8 shards on the card:
+   D1, the 22 TPC-H queries through ``run_plan_distributed``, each equal
+   to its serial run (``tpch/dist_plans.same_result``: row for row, or
+   with rows that tie on every sort key as multisets) and taking the JAX
+   package's strategy (``dist_plans.STRATEGY``: 18 distributed, Q1, Q15,
+   Q21, Q22 serial); D2, ``make_distributed_aggregate`` of Q18's inner
+   ``sum(l_quantity)`` by ``l_orderkey`` over lineitem's 8 splits, its 15M
+   groups equal as a multiset to the single-task two-step run of phase
+   17's F2; D3, the plan shapes of ``tests/test_parallel.py`` over TPC-H
+   (``dist_plans.PLANS``: right and full joins, an ORDER BY of orders, an
+   ORDER BY + LIMIT, PARTIAL/FINAL aggregation, a window by
+   ``o_custkey``), each distributed and equal to its serial run on the
+   card. Per run: the strategy, a checked first run, a warm wall (median
+   of 3, one run past 250 ms), host syncs, B1/B2 launches, the bytes the
+   shuffles moved and their GB/s (CUDA events) and the peak device memory
+   above the tables.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -884,6 +903,10 @@ def run_join_queries(card: str, times: dict, q1_q6) -> dict:
     t0 = time.perf_counter()
     exchange = run_exchange(card, times, q1_q6[0])
     log(f"phase 17 (exchange): {(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    distributed = run_distributed(card, times)
+    log(f"phase 18 (distributed, {DIST_SHARDS} shards): "
+        f"{(time.perf_counter() - t0):.3f} s")
 
     for t in tables:
         drop_table(t)
@@ -906,7 +929,8 @@ def run_join_queries(card: str, times: dict, q1_q6) -> dict:
             "scalar": scalar, "strings": strings, "join_agg": join_agg,
             "agg_steps": agg_steps, "collect": collect,
             "complex": complex_types, "collect_rest": collect_rest,
-            "spill": spilled, "exchange": exchange}
+            "spill": spilled, "exchange": exchange,
+            "distributed": distributed}
 
 
 #: the columns Q3 and Q18 read (the DOUBLE run registers only these)
@@ -2351,11 +2375,12 @@ SPILL_HOST_BUDGET = 1 << 30
 
 #: the spilled plans that hold one part of their state on the card at a
 #: time: a generic aggregation's partials and a hash build by hash part,
-#: the OrderBy and W1 by key range (``exec/spill.py`` RangeRestore). Under
+#: the OrderBy and W1 by key range (``exec/spill.py`` RangeRestore), the
+#: cross join's build by chunk (``chunk_batches``). Under
 #: the budget their peak above the tables must fall by at least half the
 #: bytes the spill moved to the host.
 PEAK_BOUNDED = ("Q18 hash", "G agg by l_orderkey", "O orderby orders",
-                "J full join", "W1 window spill")
+                "J full join", "X cross join", "W1 window spill")
 
 
 def spill_run(label: str, drain, read, compare, card: str,
@@ -2456,8 +2481,9 @@ def run_spill(card: str, times: dict, q18_rows) -> dict:
     ``optimize_plans`` off: Q18 (its result also against ``q18_rows``,
     its oracle), the generic aggregation by ``l_orderkey``, the OrderBy
     of orders (row for row; its third run under a host budget of a
-    quarter of its spilled bytes writes page files) and the full join
-    (as multisets), each through ``spill_run``."""
+    quarter of its spilled bytes writes page files), the full join (as
+    multisets) and the cross join (row for row), each through
+    ``spill_run``."""
     from velox_tpu_torch.exec import run_plan
     from velox_tpu_torch.exec.task import Task
     from velox_tpu_torch.plan import PlanBuilder
@@ -2649,6 +2675,135 @@ def run_exchange(card: str, times: dict, q1_rows) -> dict:
                  f"{groups} groups equal to the single-task run as a "
                  f"multiset through an 8 MiB buffer")
     del want
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 18's mesh: shards, all on the one card
+DIST_SHARDS = 8
+
+
+def run_distributed(card: str, times: dict) -> dict:
+    """Phase 18, over the TPC-H tables of phase 4 (cents, narrow lanes,
+    ``optimize_plans`` on for the serial runs): D1, D2 and D3 (see the
+    module's docstring) on one mesh of ``DIST_SHARDS`` shards on the
+    card. Each distributed run is measured by ``_peak_run`` (host syncs,
+    B1/B2 launches, first-run wall, peak above the tables) with the
+    shuffles' bytes and seconds (``parallel/shuffle.shuffle_stats``),
+    then timed warm."""
+    import torch
+
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.exec.task import Task
+    from velox_tpu_torch.io.catalog import get_table
+    from velox_tpu_torch.parallel import (
+        make_distributed_aggregate, make_mesh, runner,
+    )
+    from velox_tpu_torch.parallel.pipeline import shard_batches
+    from velox_tpu_torch.parallel.shuffle import shuffle_stats
+    from velox_tpu_torch.plan import PlanBuilder
+    from velox_tpu_torch.tpch import agg_step_plans as asp
+    from velox_tpu_torch.tpch import dist_plans as dp
+    from velox_tpu_torch.tpch import tpch_plan
+    from velox_tpu_torch.tpch.spill_plans import batch_rows, same_rows
+
+    mesh = make_mesh(DIST_SHARDS, device="cuda")
+    out = {"D1": {}, "D3": {}}
+
+    def measured(label, run, verify, strategy=True):
+        shuffle_stats()
+        got, counted = _peak_run(run)
+        moved, sec, n = shuffle_stats()
+        how = verify(got)
+        del got
+        rec = {**counted, "compare": how, "shuffles": n,
+               "shuffle_bytes": moved, "shuffle_s": sec,
+               "shuffle_gb_s": moved / sec / 1e9 if sec else None}
+        if strategy:
+            rec["strategy"] = runner.last_strategy
+        rec["wall_ms"] = wall_ms(run, reps=3)
+        shuffle_stats()
+        times[f"distributed {label}"] = rec["wall_ms"]
+        log(f"{label}: {rec.get('strategy', 'aggregate step')}, equal to "
+            f"the serial run ({how}); warm wall {rec['wall_ms']} ms, first "
+            f"run {rec['first_run_ms']:.1f} ms; host syncs {rec['syncs']}, "
+            f"launches B1 {rec['grouped_sum_i32']} B2 "
+            f"{rec['grouped_multi_sum_i32']}; {n} shuffles moved "
+            f"{moved} bytes in {sec:.6f} s ({rec['shuffle_gb_s']} GB/s); "
+            f"peak above the tables {rec['above_tables_gb']:.3f} GiB on "
+            f"{card}")
+        return rec
+
+    # D1: the 22 queries against their serial runs
+    for q in range(1, 23):
+        node = tpch_plan(q, SF).build()
+        want = run_plan(node)
+
+        def verify(got, want=want, node=node, q=q):
+            how, bad = dp.same_result(got, want, node)
+            check(not bad, f"D1 Q{q}: the distributed run differs: {bad}")
+            return how
+
+        rec = measured(f"D1 Q{q}", lambda node=node:
+                       runner.run_plan_distributed(node, mesh), verify)
+        check(rec["strategy"] == dp.STRATEGY[q],
+              f"D1 Q{q}: strategy {rec['strategy']}, the reference takes "
+              f"{dp.STRATEGY[q]}")
+        out["D1"][f"Q{q}"] = rec
+        del want
+    strategies = {q: r["strategy"] for q, r in out["D1"].items()}
+    log(f"D1 strategies: {strategies}")
+
+    # D2: Q18's inner aggregation through make_distributed_aggregate
+    shards = shard_batches(list(get_table("lineitem").batches), mesh)
+    qty_t = shards[0].column("l_quantity").dtype
+    step = make_distributed_aggregate(mesh, 1, [("sum", qty_t)])
+
+    def run_d2():
+        return step([[b.column("l_orderkey").values] for b in shards],
+                    [[b.column("l_orderkey").valid] for b in shards],
+                    [[b.column("l_quantity").values] for b in shards],
+                    [b.sel for b in shards])
+
+    want = batch_rows(Task(asp.plan_q18_inner(PlanBuilder).build()).run())
+
+    def verify_d2(res):
+        keys, sums = [], []
+        for gk, _, vals, _, gsel in res:
+            keys.append(gk[0][gsel])
+            sums.append(vals[0][gsel])
+        got = {"l_orderkey": (torch.cat(keys).to(
+                   want["l_orderkey"][0].dtype), None),
+               "total_qty": (torch.cat(sums).to(
+                   want["total_qty"][0].dtype), None)}
+        bad = same_rows(got, {n: (v, None) for n, (v, _) in want.items()},
+                        ordered=False)
+        check(not bad, f"D2: differs from F2's single-task run: {bad}")
+        return f"{got['l_orderkey'][0].shape[0]} groups as a multiset"
+
+    out["D2"] = measured("D2 Q18 inner aggregate", run_d2, verify_d2,
+                         strategy=False)
+    del want, shards
+
+    # D3: the test shapes over TPC-H, each against its serial run
+    for label, make in dp.PLANS.items():
+        node = make(PlanBuilder).build()
+        want = batch_rows(Task(node).run())
+        ordered = not label.endswith("join")
+
+        def verify(batches, want=want, label=label, ordered=ordered):
+            got = batch_rows(batches)
+            bad = same_rows(got, want, ordered=ordered)
+            check(not bad, f"D3 {label}: differs from the serial run: {bad}")
+            return ("row for row" if ordered else "as a multiset") + \
+                f", {got[next(iter(got))][0].shape[0]} rows"
+
+        rec = measured(f"D3 {label}", lambda node=node:
+                       runner.distributed_batches(node, mesh), verify)
+        check(rec["strategy"] == "distributed_pipeline",
+              f"D3 {label}: strategy {rec['strategy']}")
+        out["D3"][label] = rec
+        del want
     torch.cuda.empty_cache()
     return out
 
@@ -3105,6 +3260,10 @@ def main() -> int:
     by_query.update(joins["collect_rest"])
     by_query.update({k: r for k, r in joins["exchange"].items()
                      if "grouped_sum_i32" in r})
+    dist = joins["distributed"]
+    by_query.update({f"D1 {q}": r for q, r in dist["D1"].items()})
+    by_query["D2 Q18 inner aggregate"] = dist["D2"]
+    by_query.update({f"D3 {k}": r for k, r in dist["D3"].items()})
     for label, r in list(joins["spill"].items()) + [
             ("W1 window", windows.pop("W1 spill"))]:
         by_query[f"{label} unspilled"] = r["unspilled"]
@@ -3140,6 +3299,7 @@ def main() -> int:
                       "collect_rest": joins["collect_rest"],
                       "spill": spill_runs,
                       "exchange": joins["exchange"],
+                      "distributed": dist,
                       "rank_forms_ms": joins["rank_forms_ms"],
                       "tpcds_queries": ds, "window_plans": windows}))
     print(card)

@@ -135,8 +135,9 @@ class FusedScanAggOp(Operator):
         self._done = False
 
     def _compile(self, batch: Batch):
-        """The stages for this split's dictionary signature; the first
-        split decides the aggregation's mode."""
+        """The stages for this split's dictionary signature, and the
+        dictionaries after them; the first split decides the aggregation's
+        mode."""
         sig = _dict_signature(batch)
         hit = self._step_cache.get(sig)
         if hit is not None:
@@ -144,9 +145,8 @@ class FusedScanAggOp(Operator):
         stages, dicts = _stages(self.scan, self.transforms, batch)
         agg = self.agg
         agg.decide_mode_dicts({k: dicts.get(k) for k in agg.keys})
-        agg.note_key_dicts(dicts)
-        self._step_cache[sig] = stages
-        return stages
+        self._step_cache[sig] = stages, dicts
+        return stages, dicts
 
     def _pump(self) -> None:
         """Every split through the stages into the aggregation's
@@ -156,8 +156,9 @@ class FusedScanAggOp(Operator):
         while self.scan._splits:
             b = self.scan._splits.popleft().project(
                 self.scan.node.all_columns)
-            stages = self._compile(b)
+            stages, dicts = self._compile(b)
             env, sel = _run_stages(stages, eval_pairs(b), b.sel)
+            agg.note_key_dicts(dicts)
             agg.add_columns(env, sel)
         agg.no_more_input()
         self._done = True

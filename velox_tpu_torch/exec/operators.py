@@ -86,6 +86,34 @@ def _key_dict_for(key_dicts, dtype, k):
     return d
 
 
+def same_dictionary(a: Dictionary, b: Dictionary) -> bool:
+    """Whether codes into ``a`` mean what they mean in ``b``."""
+    return a is b or (len(a) == len(b) and (
+        len(a) == 0 or bool(np.array_equal(a.values, b.values))))
+
+
+def union_dictionary(dicts: Sequence[Dictionary]) -> Dictionary:
+    """The merged sorted union (codes stay ranks)."""
+    return Dictionary(sorted({str(v) for d in dicts for v in d.values}))
+
+
+def recode(values: torch.Tensor, src: Dictionary,
+           dst: Dictionary) -> torch.Tensor:
+    """Codes into ``src`` as codes into ``dst`` (-2 where ``dst`` lacks the
+    value). A lane value outside ``[0, len(src))`` (NULL's -1, a min/max
+    identity) stays as it is."""
+    if src is dst or len(src) == 0:
+        return values
+    table = torch.from_numpy(np.asarray(
+        [dst.code_of(str(v)) for v in src.values], dtype=np.int64)).to(
+            values.device)
+    v = values.to(torch.int64)
+    inr = (v >= 0) & (v < len(src))
+    out = torch.where(inr, table.index_select(0, v.clamp(0, len(src) - 1)),
+                      v)
+    return out.to(values.dtype)
+
+
 def plan_device(node) -> torch.device:
     """The device of the first table the plan below ``node`` scans: where
     an operator that saw no batch makes its empty result."""
@@ -828,6 +856,18 @@ class HashAggregationOp(Operator):
             self._arg_fields(s)[0] for s, t in zip(self.specs, self.arg_types)
             if self.step != AggStep.FINAL and t is not None
             and (t[0] if isinstance(t, tuple) else t).is_string]))
+        #: the current batch's dictionaries (a generic entry keeps them:
+        #: entries over different dictionaries merge onto their union)
+        self._batch_dicts: Dict[str, Dictionary] = {}
+        #: per aggregate: its dictionary-coded argument and the lanes that
+        #: hold codes into it (min/max of a string)
+        self._code_lanes: List[Tuple[Optional[str], List[int]]] = []
+        for s, fn, at in zip(self.specs, self.fns, self.arg_types):
+            arg = (self._arg_fields(s) or [None])[0]
+            self._code_lanes.append((arg, [
+                li for li, lt in enumerate(fn.lane_types(at))
+                if lt.is_string] if arg in self._dict_cols
+                and not self._collect else []))
         self._emitted = False
         self._device: Optional[torch.device] = None
         #: whether some aggregate keeps a (groups, width) matrix lane
@@ -951,8 +991,12 @@ class HashAggregationOp(Operator):
 
     def add_columns(self, cols, sel) -> None:
         """One batch's columns (``(values, valid)`` by name) once the mode
-        is decided: the per-batch step of either mode and step."""
+        is decided: the per-batch step of either mode and step. String
+        codes are read against the batch's dictionaries (``note_key_dicts``
+        first)."""
         self._device = sel.device
+        if self._mode == "array":
+            cols = self._onto_array_dicts(cols)
         if self._mode == "array":
             st = self.ensure_array_state(sel.device)
             st["accs"], st["seen"] = self.make_array_fn()(
@@ -991,15 +1035,100 @@ class HashAggregationOp(Operator):
         return Batch(cols, sel)
 
     def note_key_dicts(self, batch_or_dicts) -> None:
-        """Remember the first dictionary seen for each string key and
-        string aggregate argument."""
+        """Note the batch's dictionary of each string key and string
+        aggregate argument; the first one seen is the one the kArray and
+        streaming modes code against."""
         if isinstance(batch_or_dicts, Batch):
             batch_or_dicts = {k: batch_or_dicts.column(k).dictionary
                               for k in self._dict_cols}
+        self._batch_dicts = {k: batch_or_dicts[k] for k in self._dict_cols
+                             if batch_or_dicts.get(k) is not None}
+        for k, d in self._batch_dicts.items():
+            self._key_dicts.setdefault(k, d)
+
+    def _onto_array_dicts(self, cols):
+        """kArray: a batch's string codes onto the held dictionaries. A
+        batch with a value the held dictionary lacks ends the kArray mode
+        (``_leave_array_mode``), since its group has no slot."""
+        moved = {}
+        for k, d in self._batch_dicts.items():
+            held = self._key_dicts[k]
+            if len(d) == 0 or same_dictionary(d, held):
+                continue
+            if any(held.code_of(str(v)) < 0 for v in d.values):
+                self._leave_array_mode()
+                return cols
+            moved[k] = d
+        if not moved:
+            return cols
+        cols = dict(cols)
+        for k, d in moved.items():
+            v, va = cols[k]
+            cols[k] = (recode(v, d, self._key_dicts[k]), va)
+        return cols
+
+    def _leave_array_mode(self) -> None:
+        """Go on in the generic mode: the kArray groups so far become one
+        generic entry over the held dictionaries."""
+        st = self._array_state
+        self._mode = "generic"
+        self._array_state = None
+        if st is not None:
+            gkeys, accs, seen = self._array_groups(st)
+            self.push_generic_entry(gkeys, accs, seen,
+                                    [None] * len(self.specs),
+                                    dict(self._key_dicts))
+
+    def _onto_one_dictionary(self, entries: List[dict]) -> List[dict]:
+        """Entries whose string keys or code lanes came over different
+        dictionaries, re-encoded onto their merged sorted union, so that a
+        string groups by value (``_key_dicts`` then names the dictionary
+        each output column decodes through)."""
         for k in self._dict_cols:
-            d = batch_or_dicts.get(k)
-            if d is not None:
-                self._key_dicts.setdefault(k, d)
+            ds = [e.get("dicts", {}).get(k) for e in entries]
+            full = list({id(d): d for d in ds
+                         if d is not None and len(d)}.values())
+            if not full:
+                continue
+            if all(same_dictionary(d, full[0]) for d in full[1:]):
+                self._key_dicts[k] = full[0]
+                continue
+            merged = union_dictionary(full)
+            self._key_dicts[k] = merged
+            ki = self.keys.index(k) if k in self.keys else None
+            out = []
+            for e, d in zip(entries, ds):
+                if d is None or d is merged:
+                    out.append(e)
+                    continue
+                e = dict(e)
+                if ki is not None:
+                    e["keys"] = list(e["keys"])
+                    v, va = e["keys"][ki]
+                    e["keys"][ki] = (recode(v, d, merged), va)
+                    e["distinct"] = [None if r is None else {
+                        **r, "keys": [(recode(rv, d, merged), rva)
+                                      if j == ki else (rv, rva)
+                                      for j, (rv, rva) in enumerate(r["keys"])]}
+                        for r in e["distinct"]]
+                lanes = list(e["lanes"])
+                for ai, (arg, code_lanes) in enumerate(self._code_lanes):
+                    if arg != k:
+                        continue
+                    if code_lanes and lanes[ai] is not None:
+                        lanes[ai] = tuple(
+                            recode(a, d, merged) if li in code_lanes else a
+                            for li, a in enumerate(lanes[ai]))
+                    r = e["distinct"][ai]
+                    if r is not None:
+                        e["distinct"] = list(e["distinct"])
+                        e["distinct"][ai] = {**r, "arg": recode(
+                            r["arg"], d, merged)}
+                e["lanes"] = lanes
+                e["dicts"] = {**e["dicts"], k: merged}
+                out.append(e)
+            entries = out
+        return entries
 
     def _agg_column(self, name: str, vals, valid) -> Column:
         """An aggregate's output column; a string result (min/max of a
@@ -1171,9 +1300,14 @@ class HashAggregationOp(Operator):
 
         return fn
 
-    def push_generic_entry(self, gkeys, lanes_out, group_sel, dreps) -> None:
+    def push_generic_entry(self, gkeys, lanes_out, group_sel, dreps,
+                           dicts=None) -> None:
+        """One batch's partial groups; ``dicts`` (default: the batch's) are
+        the dictionaries its string codes refer to."""
+        dicts = self._batch_dicts if dicts is None else dicts
         entry = {"keys": gkeys, "lanes": lanes_out, "sel": group_sel,
-                 "distinct": dreps}
+                 "distinct": dreps, "dicts": dicts,
+                 "key_dicts": [dicts.get(k) for k in self.keys]}
         if self.step == AggStep.PARTIAL:
             self._outputs.append(self._partial_batch(entry))
         else:
@@ -1217,9 +1351,10 @@ class HashAggregationOp(Operator):
     def _partial_batch(self, entry) -> Batch:
         """A PARTIAL step's output: the group keys and every lane."""
         cols = {}
+        dicts = entry.get("dicts", self._key_dicts)
         for k, (v, va) in zip(self.keys, entry["keys"]):
             kt = self.output_type.find_child(k)
-            cols[k] = Column(kt, v, va, _key_dict_for(self._key_dicts, kt, k))
+            cols[k] = Column(kt, v, va, _key_dict_for(dicts, kt, k))
         for name, fn, at, lanes in zip(self.agg_names, self.fns,
                                        self.arg_types, entry["lanes"]):
             for li, (lane, lt) in enumerate(zip(lanes, fn.lane_types(at))):
@@ -1283,6 +1418,22 @@ class HashAggregationOp(Operator):
         st = self._array_state
         if st is None:
             raise RuntimeError("no input reached array-mode aggregation")
+        gkeys, accs, seen = self._array_groups(st)
+        if self.step == AggStep.PARTIAL:
+            return self._partial_batch({"keys": gkeys, "lanes": accs,
+                                        "sel": seen})
+        cols = {}
+        for k, (v, va) in zip(self.keys, gkeys):
+            kt = self.output_type.find_child(k)
+            cols[k] = Column(kt, v, va, _key_dict_for(self._key_dicts, kt, k))
+        for name, fn, lanes in zip(self.agg_names, self.fns, accs):
+            vals, valid = fn.extract(lanes, seen)
+            cols[name] = self._agg_column(name, vals, valid)
+        return Batch(cols, seen)
+
+    def _array_groups(self, st: dict):
+        """The kArray state as (group key pairs, lanes, live groups), padded
+        to a power of two: every slot, live where a row was seen."""
         G = self._num_groups
         cap = max(round_capacity(G), G)
         pad = cap - G
@@ -1307,17 +1458,7 @@ class HashAggregationOp(Operator):
                           padded(torch.from_numpy(valid_np).to(device),
                                  False)))
         accs = [tuple(padded(a) for a in lanes) for lanes in st["accs"]]
-        if self.step == AggStep.PARTIAL:
-            return self._partial_batch({"keys": gkeys, "lanes": accs,
-                                        "sel": seen})
-        cols = {}
-        for k, (v, va) in zip(self.keys, gkeys):
-            kt = self.output_type.find_child(k)
-            cols[k] = Column(kt, v, va, _key_dict_for(self._key_dicts, kt, k))
-        for name, fn, lanes in zip(self.agg_names, self.fns, accs):
-            vals, valid = fn.extract(lanes, seen)
-            cols[name] = self._agg_column(name, vals, valid)
-        return Batch(cols, seen)
+        return gkeys, accs, seen
 
     def _merge_entries(self, entries: List[dict]) -> Batch:
         """Combine every batch's partials: concatenate them (padded to a
@@ -1326,7 +1467,9 @@ class HashAggregationOp(Operator):
         representatives follow the partials as a region of their own;
         they are deduplicated again by (group, arg) and accumulated.
         Keyless: the single output row (slot 0), emitted even on empty
-        input."""
+        input. Entries over different dictionaries merge onto their
+        union first."""
+        entries = self._onto_one_dictionary(entries)
         n_reg = sum(e["sel"].shape[0] for e in entries)
         d_specs = [i for i, s in enumerate(self.specs) if s.distinct]
         key_regions = [e["keys"] for e in entries]
@@ -1501,7 +1644,7 @@ class StreamingAggregationOp(HashAggregationOp):
     def add_input(self, batch: Batch) -> None:
         self._device = batch.device
         self.note_key_dicts(batch)
-        cols = _cols_of(batch, self._needed)
+        cols = self._onto_stream_dicts(_cols_of(batch, self._needed))
         rows = syncs.nonzero(batch.sel)
         n = rows.shape[0]
         if n == 0:
@@ -1629,6 +1772,32 @@ class StreamingAggregationOp(HashAggregationOp):
             [(v[n - 1:n], None if va is None else va[n - 1:n])
              for v, va in kp],
             [[t[ng - 1:ng] for t in lanes] for lanes in totals])
+
+    def _onto_stream_dicts(self, cols):
+        """A batch's string codes onto the held dictionary of each column,
+        which grows to the union when the batch brings new values (the
+        open group's codes follow), so that a string continues its group
+        whatever dictionary its batch has."""
+        for k, d in self._batch_dicts.items():
+            held = self._key_dicts[k]
+            if len(d) == 0 or same_dictionary(d, held):
+                continue
+            merged = held
+            if len(held) == 0 or any(held.code_of(str(v)) < 0
+                                     for v in d.values):
+                merged = union_dictionary([held, d])
+            if merged is not held and self._carry is not None:
+                ck, cl = self._carry
+                ck = [(recode(v, held, merged), va) if kk == k else (v, va)
+                      for kk, (v, va) in zip(self.keys, ck)]
+                cl = [[recode(a, held, merged) if arg == k and li in lanes
+                       else a for li, a in enumerate(acc)]
+                      for (arg, lanes), acc in zip(self._code_lanes, cl)]
+                self._carry = (ck, cl)
+            self._key_dicts[k] = merged
+            v, va = cols[k]
+            cols = {**cols, k: (recode(v, d, merged), va)}
+        return cols
 
     def get_output(self) -> Optional[Batch]:
         if self._queue:
@@ -2261,10 +2430,12 @@ class HashProbeOp(Operator):
         overrides this)."""
         return False
 
-    def _runs(self, batch: Batch):
+    def runs(self, batch: Batch, br: Optional[JoinBridge] = None):
         """(first, count) per probe row, and the probe key's SQL
-        null-ness (None when no key can be null)."""
-        br = self.bridge
+        null-ness (None when no key can be null). Reads ``br`` (default:
+        the operator's bridge) and changes nothing: a mesh shard calls it
+        with its replica of the build."""
+        br = br or self.bridge
         node = self.node
         key_cols = [(batch.column(k).values, batch.column(k).valid)
                     for k in node.left_keys]
@@ -2313,15 +2484,17 @@ class HashProbeOp(Operator):
         out = sel & (hits == 0)
         return out if null_valid is None else out & null_valid
 
-    def _expansions(self, first, count, emit):
+    def _expansions(self, first, count, emit, br: JoinBridge,
+                    total: Optional[int] = None):
         """``expand_matches`` over at most ``_EXPAND_CHUNK`` pairs at a
         time: yields ``(probe_rows, build_rows, matched, out_sel, n)``.
-        The match total is one host read; a larger expansion cuts the
-        probe rows where the running total crosses each multiple of the
-        chunk (one more read) and reads each chunk's total."""
-        br = self.bridge
+        The match total is one host read (unless the caller read it); a
+        larger expansion cuts the probe rows where the running total
+        crosses each multiple of the chunk (one more read) and reads each
+        chunk's total."""
         e = output_counts(count, emit).to(torch.int64)
-        total = syncs.to_int(e.sum())
+        if total is None:
+            total = syncs.to_int(e.sum())
         if total == 0:
             return
         if total <= self._EXPAND_CHUNK:
@@ -2348,7 +2521,7 @@ class HashProbeOp(Operator):
                                      round_capacity(n), emit_c) + (n,)
 
     def _pairs_batch(self, batch: Batch, names, probe_rows, build_rows,
-                     matched, out_sel, n) -> Batch:
+                     matched, out_sel, n, br: JoinBridge) -> Batch:
         """The expanded pairs' columns ``names``: probe columns gathered
         by probe row, build columns by build row, valid only where a
         match exists."""
@@ -2358,7 +2531,7 @@ class HashProbeOp(Operator):
             if name in left:
                 cols[name] = batch.column(name).gather(probe_rows)
             else:
-                c = self.bridge.build_batch.column(name).gather(build_rows)
+                c = br.build_batch.column(name).gather(build_rows)
                 cols[name] = Column(c.dtype, c.values,
                                     _and_valid(c.valid, matched),
                                     c.dictionary, c.stats)
@@ -2383,18 +2556,38 @@ class HashProbeOp(Operator):
             raise RuntimeError("probe before the build finished")
         if not self._pushdown_done:
             self._push_dynamic_filter()
+        self.note_probe_dicts(batch)
+        (first, count), null_valid = self.runs(batch)
+        outs, hit = self.expand(batch, first, count, null_valid)
+        if hit is not None:
+            br.matched = br.matched | hit
+        self._queue.extend(outs)
+
+    def note_probe_dicts(self, batch: Batch) -> None:
+        """Keep the probe columns' dictionaries, for the null probe
+        columns of the build rows a right or full join emits last."""
         for name in self.node.left.output_type.names:
             d = batch.column(name).dictionary
             if d is not None:
                 self._probe_dicts.setdefault(name, d)
-        (first, count), null_valid = self._runs(batch)
+
+    def expand(self, batch: Batch, first, count, null_valid,
+               br: Optional[JoinBridge] = None, total: Optional[int] = None
+               ) -> Tuple[List[Batch], Optional[torch.Tensor]]:
+        """A probe batch's output batches from its match runs, and (right,
+        full and right-semi joins) the build rows it matched (None if it
+        matched none), for the caller to OR into the bridge's flags.
+        Reads ``br`` (default: the
+        operator's bridge) and changes nothing; ``total`` is the batch's
+        pair count when the caller read it already."""
+        br = br or self.bridge
+        outs: List[Batch] = []
         out_names = self.output_type.names
         jt = self.jt
         semi = jt in self._SEMI_LIKE
         if semi and self._filter is None:
             sel = self._semi_sel(batch.sel, count, null_valid)
-            self._queue.append(batch.with_sel(sel).project(out_names))
-            return
+            return [batch.with_sel(sel).project(out_names)], None
         left_like = jt in self._LEFT_LIKE
         track = jt in self._TRACK_MATCHED
         emit = batch.sel if left_like else None
@@ -2409,10 +2602,11 @@ class HashProbeOp(Operator):
             # per probe row: its match pairs that pass the filter
             hits = torch.zeros(batch.capacity + 1, dtype=torch.int32,
                                device=batch.device)
+        flags = None
         for probe_rows, build_rows, matched, out_sel, n in self._expansions(
-                first, count, emit):
+                first, count, emit, br, total):
             pairs = self._pairs_batch(batch, names, probe_rows, build_rows,
-                                      matched, out_sel, n)
+                                      matched, out_sel, n, br)
             passing = None
             if self._filter is not None:
                 passing = self._filter.filter_sel(pairs) & matched
@@ -2420,9 +2614,10 @@ class HashProbeOp(Operator):
                 hit = matched & out_sel
                 if passing is not None:
                     hit = hit & passing
-                br.matched = br.matched | build_matched_flags(
-                    br.matched.shape[0], build_rows, hit,
+                f = build_matched_flags(
+                    br.build_batch.capacity, build_rows, hit,
                     torch.ones_like(out_sel))
+                flags = f if flags is None else flags | f
             if hits is not None:
                 hits.index_add_(0, torch.where(
                     passing, probe_rows,
@@ -2431,25 +2626,25 @@ class HashProbeOp(Operator):
             if semi or jt == JoinType.RIGHT_SEMI:
                 continue   # semi: at the batch's end; right semi: finish
             if passing is None:
-                self._queue.append(pairs)
+                outs.append(pairs)
             elif left_like:
                 # passing pairs and unmatched probe rows; the build
                 # columns of a failed pair are null
                 keep = passing | (out_sel & ~matched)
-                self._queue.append(self._failed_pairs_nulled(
+                outs.append(self._failed_pairs_nulled(
                     pairs, passing).with_sel(keep).project(out_names))
             else:
-                self._queue.append(
-                    pairs.with_sel(passing).project(out_names))
+                outs.append(pairs.with_sel(passing).project(out_names))
         if semi:
             sel = self._semi_sel(batch.sel, hits[:batch.capacity],
                                  null_valid)
-            self._queue.append(batch.with_sel(sel).project(out_names))
+            outs.append(batch.with_sel(sel).project(out_names))
         elif hits is not None:
             # probe rows with matches of which none passed come back
             # null-extended, after the batch's joined rows
             resurrect = batch.sel & (count > 0) & (hits[:batch.capacity] == 0)
-            self._queue.append(self._null_extended(batch, resurrect))
+            outs.append(self._null_extended(batch, resurrect, br))
+        return outs, flags
 
     def _failed_pairs_nulled(self, pairs: Batch, passing) -> Batch:
         """``pairs`` with every build column null where ``passing`` is
@@ -2463,7 +2658,7 @@ class HashProbeOp(Operator):
             cols[name] = c
         return Batch(cols, pairs.sel, pairs.num_rows)
 
-    def _null_extended(self, batch: Batch, sel) -> Batch:
+    def _null_extended(self, batch: Batch, sel, br: JoinBridge) -> Batch:
         """The probe rows ``sel`` with all-null build columns."""
         cap = batch.capacity
         cols = {}
@@ -2471,7 +2666,7 @@ class HashProbeOp(Operator):
             cols[name] = batch.column(name)
         for name, t in zip(self.node.right.output_type.names,
                            self.node.right.output_type.children):
-            c = self.bridge.build_batch.column(name)
+            c = br.build_batch.column(name)
             cols[name] = Column(
                 t, torch.zeros(cap, dtype=c.values.dtype, device=sel.device),
                 torch.zeros(cap, dtype=torch.bool, device=sel.device),
@@ -2630,6 +2825,15 @@ class CrossBuildOp(Operator):
             return
         super().no_more_input()
         node = self.bridge.node
+        if self._buffer.has_spilled():
+            # the build stays in host RAM; the probe restores it one chunk
+            # at a time (C9)
+            from velox_tpu_torch.exec.spill import chunk_batches
+
+            self.bridge.spill_parts = chunk_batches(
+                self._buffer.drain_host())
+            self.bridge.mark_ready()
+            return
         batches = self._buffer.drain()
         if batches:
             big = concat_batches(batches)
@@ -2648,7 +2852,13 @@ class CrossBuildOp(Operator):
 
 class CrossProbeOp(Operator):
     """velox/exec/NestedLoopJoinProbe.h:68: every active probe row with
-    every build row (probe-major), then the join filter."""
+    every build row (probe-major), then the join filter.
+
+    Over a spilled build (``bridge.spill_parts``: host chunks of at most
+    half the budget) each probe batch meets one restored chunk at a
+    time; each chunk's passing pairs are compacted and a stable sort by
+    probe row puts them back in (probe row, build row) order, the
+    unspilled run's."""
 
     def __init__(self, node, bridge: JoinBridge):
         super().__init__(node)
@@ -2665,25 +2875,75 @@ class CrossProbeOp(Operator):
         br = self.bridge
         if not br.ready:
             raise RuntimeError("probe before the build finished")
+        if br.spill_parts is not None:
+            self._add_chunked(batch)
+            return
         nb = br.n_active
         if nb == 0:
             return
         probe, n_probe = _front_packed(batch)
         if n_probe == 0:
             return
+        joined, _ = self._product(probe, n_probe, br.build_batch, nb)
+        self._queue.append(joined.project(self.output_type.names))
+
+    def _product(self, probe: Batch, n_probe: int, build: Batch, nb: int):
+        """Every probe row with every build row, probe-major, under the
+        filter, and each pair's probe row."""
         total = n_probe * nb
         cap = round_capacity(total)
-        j = torch.arange(cap, device=batch.device)
+        j = torch.arange(cap, device=probe.device)
         probe_rows = j // nb
         build_rows = j % nb
         cols = {n: probe.column(n).gather(probe_rows)
                 for n in self.node.left.output_type.names}
-        cols.update({n: br.build_batch.column(n).gather(build_rows)
+        cols.update({n: build.column(n).gather(build_rows)
                      for n in self.node.right.output_type.names})
         joined = Batch(cols, j < total, total)
         if self._filter is not None:
             joined = joined.with_sel(self._filter.filter_sel(joined))
-        self._queue.append(joined.project(self.output_type.names))
+        return joined, probe_rows
+
+    def _add_chunked(self, batch: Batch) -> None:
+        from velox_tpu_torch.exec import memory
+        from velox_tpu_torch.exec.spill import (
+            METRIC_SPILL_CHUNKS, batch_device_bytes, restore_fragments,
+        )
+        from velox_tpu_torch.utils.metrics import reporter
+
+        probe, n_probe = _front_packed(batch)
+        if n_probe == 0:
+            return
+        pool = memory.MemoryPool(f"cross_probe:{self.node.id}.restore",
+                                 memory.current_pool() or memory.root_pool)
+        outs = []
+        try:
+            for chunk in self.bridge.spill_parts:
+                build = restore_fragments(chunk, batch.device)
+                held = batch_device_bytes(build)
+                pool.reserve(held)
+                reporter.add_counter(METRIC_SPILL_CHUNKS)
+                try:
+                    build, nb = _front_packed(build)
+                    if nb:
+                        joined, prow = self._product(probe, n_probe, build,
+                                                     nb)
+                        outs.append(joined.with_column(
+                            "__probe_row", Column(BIGINT, prow)).compact())
+                finally:
+                    pool.release(held)
+                    del build
+        finally:
+            pool.close()
+        if not outs:
+            return
+        big = concat_batches(outs)
+        prow = big.column("__probe_row").values
+        order = torch.sort(torch.where(big.sel, prow,
+                                       torch.full_like(prow, n_probe)),
+                           stable=True).indices
+        self._queue.append(big.gather(order, big.sel.index_select(
+            0, order), big.num_rows).project(self.output_type.names))
 
     def get_output(self) -> Optional[Batch]:
         return self._queue.popleft() if self._queue else None

@@ -66,6 +66,8 @@ METRIC_SPILL_FILE_BYTES = "velox_tpu.spill_file_bytes"
 #: key ranges a range restore brought back, and those larger than the
 #: device budget (one first-key value, or the NULLs, held more than it)
 METRIC_SPILL_RANGES = "velox_tpu.spill_ranges"
+#: build chunks a spilled cross join restored (one a probe batch each)
+METRIC_SPILL_CHUNKS = "velox_tpu.spill_chunks"
 METRIC_SPILL_RANGES_OVER_BUDGET = "velox_tpu.spill_ranges_over_budget"
 
 #: at most this many key ranges a restore
@@ -520,6 +522,39 @@ def partition_batches(batches: Sequence[Batch], keys: Sequence[str],
     return parts
 
 
+def chunk_batches(batches: Sequence[Batch]) -> List[List[Batch]]:
+    """Host batches in arrival order, grouped into chunks of at most
+    half the device budget each, for a restore one chunk at a time. A
+    batch larger than that is cut into row slices of one lane or more
+    (a flat column's slices are views)."""
+    budget = _range_budget()
+    target = budget // 2 if budget else None
+    pieces: List[Batch] = []
+    for b in batches:
+        nb = batch_device_bytes(b)
+        if target is None or nb <= target or not b.capacity:
+            pieces.append(b)
+            continue
+        rows = max(128, (target * b.capacity // nb) // 128 * 128)
+        for lo in range(0, b.capacity, rows):
+            hi = min(lo + rows, b.capacity)
+            pieces.append(Batch(
+                {n: _map_column(c, lambda t: t[lo:hi])
+                 if isinstance(c, Column) else c.gather(
+                     torch.arange(lo, hi)) for n, c in b.columns.items()},
+                b.sel[lo:hi]))
+    chunks: List[List[Batch]] = []
+    size = 0
+    for b in pieces:
+        nb = batch_device_bytes(b)
+        if not chunks or (target is not None and size + nb > target):
+            chunks.append([])
+            size = 0
+        chunks[-1].append(b)
+        size += nb
+    return chunks
+
+
 def restore_fragments(frags: Sequence[Batch], device) -> Optional[Batch]:
     """One part's host fragments as one batch on ``device`` (rows a dense
     prefix of a power-of-two capacity)."""
@@ -770,7 +805,7 @@ def _map_entry(entry: dict, fn) -> dict:
     def pairs(ps):
         return [(fn(v), None if va is None else fn(va)) for v, va in ps]
 
-    return {
+    out = {
         "keys": pairs(entry["keys"]),
         "lanes": [None if lane is None else tuple(fn(a) for a in lane)
                   for lane in entry["lanes"]],
@@ -779,6 +814,26 @@ def _map_entry(entry: dict, fn) -> dict:
             "keys": pairs(d["keys"]), "arg": fn(d["arg"]),
             "sel": fn(d["sel"])} for d in entry["distinct"]],
     }
+    # the dictionaries the entry's string codes refer to ride along
+    for f in ("dicts", "key_dicts"):
+        if f in entry:
+            out[f] = entry[f]
+    return out
+
+
+def _entry_key_lanes(keys, key_dicts) -> list:
+    """An entry's host key lanes as the partition hash reads them: a
+    string key by its value's crc32 (entries over different dictionaries
+    send one string to one part), any other as it is."""
+    out = []
+    for i, (v, va) in enumerate(keys):
+        v = _host(v)
+        d = key_dicts[i] if key_dicts else None
+        if d is not None:
+            v = d.derived(("crc32",), _string_hashes)[
+                np.clip(v.astype(np.int64) + 1, 0, len(d))]
+        out.append((v, _host(va)))
+    return out
 
 
 def _entry_bytes(entry: dict) -> int:
@@ -792,7 +847,7 @@ def _split_entry(he: dict, pids: np.ndarray, num_parts: int,
     same hash, so each part sees its groups' lanes and representatives."""
     sel = _host(he["sel"])
     d_pids = [None if d is None else _np_key_hash(
-        [(_host(v), _host(va)) for v, va in d["keys"]],
+        _entry_key_lanes(d["keys"], he.get("key_dicts")),
         d["sel"].shape[0]) % num_parts for d in he["distinct"]]
     order, bounds = _part_order(sel, pids, num_parts)
     grouped = _map_entry({**he, "distinct": [None] * len(he["distinct"])},
@@ -855,7 +910,7 @@ class PartitionedEntryStore:
                 he = self._to_host(e)
                 nbytes = _entry_bytes(he)
                 pids = _np_key_hash(
-                    [(_host(v), _host(va)) for v, va in he["keys"]],
+                    _entry_key_lanes(he["keys"], he.get("key_dicts")),
                     he["sel"].shape[0]) % self.num_parts
                 for p, sub in enumerate(_split_entry(
                         he, pids, self.num_parts, self.home.type == "cuda")):

@@ -137,7 +137,7 @@ class WindowOp(Operator):
     def get_output(self) -> Optional[Batch]:
         return next_blocking_output(self, lambda: blocking_output(
             self._buffer, _first_key(self.node.partition_keys),
-            self._evaluate, arrival_order=True))
+            self.evaluate, arrival_order=True))
 
     def needed_columns(self) -> list:
         node = self.node
@@ -146,7 +146,11 @@ class WindowOp(Operator):
             + [k.name for k in node.sort_keys]
             + [f.arg for f in node.functions if f.arg is not None]))
 
-    def _evaluate(self, big: Batch) -> Batch:
+    def evaluate(self, big: Batch) -> Batch:
+        """One batch's rows with the window columns added, in arrival
+        order: the serial operator calls it on its buffered rows (one key
+        range at a time when spilled), a mesh shard on the rows of the
+        partitions it holds."""
         node = self.node
         cols = _cols_of(big, self.needed_columns())
         results = self.run_fn(cols, big.sel)
@@ -402,7 +406,7 @@ class StreamingWindowOp(WindowOp):
         if complete > 0:
             cap_c = min(round_capacity(complete), big.capacity)
             selc = torch.arange(cap_c, device=big.device) < complete
-            self._queue.append(self._evaluate(
+            self._queue.append(self.evaluate(
                 big.gather(pk[:cap_c], selc, complete)))
         tail = total - complete
         if tail > 0:
@@ -420,7 +424,7 @@ class StreamingWindowOp(WindowOp):
         if self.no_more_input_seen and not self._emitted:
             self._emitted = True
             if self._carry is not None:
-                out = self._evaluate(self._carry)
+                out = self.evaluate(self._carry)
                 self._carry = None
                 return out
         return None

@@ -8,8 +8,11 @@ device-side reading and comparison of their results.
 (``o_totalprice``, ``o_orderkey``); **J** a full outer join of orders
 before 1995 to lineitem shipped after 1992-06-30 (a hash join: its
 lineitem build spills partitioned, and both probe-only and build-only
-rows come out). W1 (``tpcds/window_plans.py``) runs over TPC-DS's
-store_sales. Every plan runs with ``optimize_plans`` off.
+rows come out); **X** a cross join of part's first 400 keys to every
+supplier under a filter (its supplier build spills and comes back one
+chunk of at most half the budget at a time, C9). W1
+(``tpcds/window_plans.py``) runs over TPC-DS's store_sales. Every plan
+runs with ``optimize_plans`` off.
 
 A result is read on the device (``device_rows``): each column's live
 rows, concatenated; or on the host batch by batch (``host_rows``, W1's
@@ -52,10 +55,19 @@ def plan_join(pb):
                                "l_quantity", "l_extendedprice"]))
 
 
+def plan_cross(pb):
+    return (pb().table_scan("part", ["p_partkey", "p_size"])
+            .filter("p_partkey <= 400")
+            .cross_join(pb().table_scan("supplier", [
+                "s_suppkey", "s_nationkey", "s_acctbal"]),
+                filter="s_suppkey % 100 = p_partkey % 100"))
+
+
 #: label -> (plan, whether its order is part of the result)
 PLANS = {"G agg by l_orderkey": (plan_agg, False),
          "O orderby orders": (plan_order, True),
-         "J full join": (plan_join, False)}
+         "J full join": (plan_join, False),
+         "X cross join": (plan_cross, True)}
 
 Rows = Dict[str, Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
