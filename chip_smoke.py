@@ -236,6 +236,20 @@ Phases (any failure ends the run with a nonzero exit code):
    of 3, one run past 250 ms), host syncs, B1/B2 launches, the bytes the
    shuffles moved and their GB/s (CUDA events) and the peak device memory
    above the tables.
+19. (after phase 8, under the default session config) the eight fuzzers
+   (``velox_tpu_torch/fuzzer``) on the card at the JAX package's default
+   iteration counts and seeds apart from ``tests/test_fuzzer.py``'s:
+   expression (100 trees at ``rows=64``, then 10 at ``rows=8192``, each
+   against the plain-Python evaluator), window (40, against the
+   row-by-row oracle), join (50 queries, each through the hash, merge and
+   spilled strategies, which must agree, and the filterless one-key ones
+   against the plain join), plan (50 scan/filter/join/aggregate plans
+   against the SQL oracle), aggregation (60, through every strategy an
+   aggregate allows, which must agree), distributed (20 plans on a mesh
+   of ``DIST_SHARDS`` shards against the serial run) and exchange (30
+   page streams through the local and TCP exchange). A mismatch raises.
+   One line a fuzzer: iterations, checked and skipped, the strategies
+   run, seconds, host syncs and B1/B2 launches.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -2808,6 +2822,90 @@ def run_distributed(card: str, times: dict) -> dict:
     return out
 
 
+#: phase 19's fuzzers: (label, iterations, seed, keyword arguments); the
+#: JAX package's default iteration counts, the port's for the distributed
+#: and exchange fuzzers, seeds apart from tests/test_fuzzer.py's
+FUZZERS = [("expression", 100, 1901, {"rows": 64}),
+           ("expression wide", 10, 1902, {"rows": 8192}),
+           ("window", 40, 1903, {}), ("join", 50, 1904, {}),
+           ("plan", 50, 1905, {}), ("aggregation", 60, 1906, {}),
+           ("distributed", 20, 1907, {}), ("exchange", 30, 1908, {})]
+
+
+def run_fuzzers(card: str, device: str = "cuda") -> dict:
+    """Phase 19: the eight fuzzers on ``device`` (the card; the CPU for a
+    rehearsal) under the default session config (the JAX fuzzers' own),
+    each counted from zero: seconds, host syncs, B1/B2 launches, checked
+    and skipped iterations and the strategies run. A fuzzer's mismatch
+    raises out of the script."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from velox_tpu_torch import fuzzer as fz
+    from velox_tpu_torch.fuzzer import aggregation_fuzzer
+    from velox_tpu_torch.ops import grouped_sum as gs
+    from velox_tpu_torch.parallel import make_mesh
+    from velox_tpu_torch.utils import syncs
+    from velox_tpu_torch.utils.config import SessionConfig, config
+
+    saved = dataclasses.asdict(config)
+    for f in dataclasses.fields(SessionConfig):
+        setattr(config, f.name, getattr(SessionConfig(), f.name))
+    mesh = make_mesh(DIST_SHARDS, device=device)
+    out = {}
+    try:
+        for label, n, seed, kw in FUZZERS:
+            syncs.reset()
+            gs.reset_launches()
+            t0 = time.perf_counter()
+            if label.startswith("expression"):
+                checked = fz.run_expression_fuzz(n, seed, device=device,
+                                                 **kw)
+                strategies = {"ExprSet": checked}
+            elif label == "window":
+                fz.run_window_fuzz(n, seed, device=device)
+                checked, strategies = n, {"window": n}
+            elif label == "join":
+                checked = n
+                strategies = dict(fz.run_join_fuzz(n, seed, device=device))
+            elif label == "plan":
+                fz.run_plan_fuzz(n, seed, device=device)
+                checked, strategies = n, {"hash join + aggregation": n}
+            elif label == "aggregation":
+                counted = collections.Counter()
+                missing = fz.run_aggregation_fuzz(n, seed, device=device,
+                                                  strategies=counted)
+                checked, strategies = n, dict(counted)
+                check(missing == aggregation_fuzzer.missing_aggregates(),
+                      f"aggregation fuzzer: missing {missing}")
+            elif label == "distributed":
+                checked = n
+                strategies = dict(collections.Counter(
+                    fz.run_distributed_fuzz(n, seed, mesh=mesh)))
+            else:
+                fz.run_exchange_fuzz(n, seed, device=device)
+                checked, strategies = n, {"pages": n}
+            torch.cuda.synchronize()
+            rec = {"iterations": n, "seed": seed, **kw, "checked": checked,
+                   "skipped": n - checked, "strategies": strategies,
+                   "seconds": time.perf_counter() - t0,
+                   "syncs": syncs.count, **gs.launches}
+            out[label] = rec
+            opts = "".join(f", {k}={v}" for k, v in kw.items())
+            log(f"fuzz {label}: {n} iterations (seed {seed}{opts}), "
+                f"{checked} checked, {n - checked} skipped, strategies "
+                f"{strategies}; {rec['seconds']:.3f} s, host syncs "
+                f"{rec['syncs']}, launches B1 {rec['grouped_sum_i32']} B2 "
+                f"{rec['grouped_multi_sum_i32']} on {card}")
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+    torch.cuda.empty_cache()
+    return out
+
+
 def bind_over_result(plan) -> float:
     """Seconds to bind the projection at the top of ``plan`` against a
     fresh run of the plan below it (its dictionaries new, so nothing of
@@ -3241,6 +3339,11 @@ def main() -> int:
     windows = run_window_plans(ds_tables["store_sales"], card, times)
     log(f"phase 8 (window plans): {(time.perf_counter() - t0):.3f} s")
 
+    # 19. the fuzzers
+    t0 = time.perf_counter()
+    fuzz = run_fuzzers(card)
+    log(f"phase 19 (fuzzers): {(time.perf_counter() - t0):.3f} s")
+
     # report each kernel's launches in every query's checked run
     spill_runs = {}
     by_query = {"Q1 cents": q1_counts, "Q1 double": qd_counts,
@@ -3271,6 +3374,7 @@ def main() -> int:
         spill_runs[label] = r
     by_query.update(ds)
     by_query.update(windows)
+    by_query.update({f"fuzz {k}": r for k, r in fuzz.items()})
     more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
     check(more_b2 > 0, "no query of phase 5 launched B2")
     kernels = [
@@ -3301,7 +3405,8 @@ def main() -> int:
                       "exchange": joins["exchange"],
                       "distributed": dist,
                       "rank_forms_ms": joins["rank_forms_ms"],
-                      "tpcds_queries": ds, "window_plans": windows}))
+                      "tpcds_queries": ds, "window_plans": windows,
+                      "fuzzers": fuzz}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -115,16 +115,19 @@ def recode(values: torch.Tensor, src: Dictionary,
 
 
 def plan_device(node) -> torch.device:
-    """The device of the first table the plan below ``node`` scans: where
-    an operator that saw no batch makes its empty result."""
+    """The device of the first table the plan below ``node`` scans, or of
+    its first literal batch: where an operator that saw no batch makes
+    its empty result."""
     from velox_tpu_torch.io.catalog import get_table
-    from velox_tpu_torch.plan.nodes import TableScanNode
+    from velox_tpu_torch.plan.nodes import TableScanNode, ValuesNode
 
     stack = [node]
     while stack:
         n = stack.pop()
         if isinstance(n, TableScanNode):
             return get_table(n.table).batches[0].device
+        if isinstance(n, ValuesNode) and n.batches:
+            return n.batches[0].device
         stack.extend(reversed(n.sources))
     return resolve_device(None)
 
@@ -813,7 +816,10 @@ class HashAggregationOp(Operator):
                 else:
                     arg = f"{name}@e"
                     self.arg_types.append(page_t.element)
-                self.specs[si] = dataclasses.replace(s, arg=arg)
+                # ``name@m``: whether a row is an element (or a group's
+                # own row, which keeps a group with no element)
+                self.specs[si] = dataclasses.replace(s, arg=arg,
+                                                     mask=f"{name}@m")
                 self.lane_names.append([])
                 continue
             if self.step == AggStep.FINAL:
@@ -1017,7 +1023,11 @@ class HashAggregationOp(Operator):
     def _expand_collect_pages(self, batch: Batch) -> Batch:
         """A FINAL step of the page form: the page column's elements as
         rows, each with its owning row's keys, so that the SINGLE step's
-        collect runs unchanged (velox addIntermediateResults)."""
+        collect runs unchanged (velox addIntermediateResults). Each page
+        row also comes once as itself, its element masked out
+        (``name@m``), so a group whose page is NULL or empty (every row
+        of it failed the PARTIAL step's mask) stays a group, and its
+        result is NULL as in one step."""
         from velox_tpu_torch.exec.collect_agg import element_owners
 
         name = self.agg_names[0]
@@ -1026,13 +1036,19 @@ class HashAggregationOp(Operator):
         owner, within = element_owners(page.starts, page.lengths,
                                        flat.capacity)
         sel = within & take(batch.sel, owner)
-        cols = {k: batch.column(k).gather(owner) for k in self.keys}
-        if isinstance(page, MapColumn):
-            cols[f"{name}@k"] = page.keys
-            cols[f"{name}@v"] = page.values
-        else:
-            cols[f"{name}@e"] = page.elements
-        return Batch(cols, sel)
+        elems = {k: batch.column(k).gather(owner) for k in self.keys}
+        rows = {k: batch.column(k) for k in self.keys}
+        flats = ({"@k": page.keys, "@v": page.values}
+                 if isinstance(page, MapColumn) else {"@e": page.elements})
+        first = torch.zeros(batch.capacity, dtype=torch.int64,
+                            device=sel.device)
+        for suffix, flat in flats.items():
+            elems[name + suffix] = flat
+            rows[name + suffix] = flat.gather(first)   # masked out
+        elems[f"{name}@m"] = Column(BOOLEAN, torch.ones_like(sel), None)
+        rows[f"{name}@m"] = Column(BOOLEAN, torch.zeros_like(batch.sel),
+                                   None)
+        return concat_batches([Batch(elems, sel), Batch(rows, batch.sel)])
 
     def note_key_dicts(self, batch_or_dicts) -> None:
         """Note the batch's dictionary of each string key and string
@@ -1407,6 +1423,7 @@ class HashAggregationOp(Operator):
                         else (spec.arg,)
                     ats = at if isinstance(at, tuple) else (at,)
                     types.update(zip(args, ats))
+                    types[spec.mask] = BOOLEAN
             batches = [Batch.empty_like(
                 row_type(self._needed, [types[n] for n in self._needed]),
                 round_capacity(1), self._device or plan_device(self.node))]

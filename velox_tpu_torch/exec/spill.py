@@ -341,10 +341,12 @@ class SpillableBuffer:
         self.pool = _leaf_pool(self, label, pool)
 
     def append(self, b: Batch) -> None:
+        # one step to every other thread's arbitration: none sees the
+        # batch before this buffer's own arbitration has run
         with _LOCK:
             self.home = b.device
             self._device.append(b)
-        self.pool.maybe_arbitrate()
+            self.pool.maybe_arbitrate()
         self.mm.maybe_reclaim()
 
     def _detach_pool(self) -> None:
@@ -893,10 +895,10 @@ class PartitionedEntryStore:
         self.pool = _leaf_pool(self, label, pool)
 
     def append(self, entry: dict) -> None:
-        with _LOCK:
+        with _LOCK:      # appended and arbitrated in one step
             self.home = entry["sel"].device
             self._device.append(entry)
-        self.pool.maybe_arbitrate()
+            self.pool.maybe_arbitrate()
         memory_manager.maybe_reclaim()
 
     def device_bytes(self) -> int:
