@@ -51,7 +51,8 @@ Phases (any failure ends the run with a nonzero exit code):
    ``SPEC_QUERIES`` (``optimize_plans`` on), each checked against its
    numpy oracle (``velox_tpu_torch/tpcds/oracle.py``) with its host
    syncs, B1/B2 launches and peak device memory counted, then timed and
-   profiled as in phase 5;
+   profiled as in phase 5 (the oracles of phases 7 and 8 run side by
+   side on the host before the first of its plans);
 8. over that store_sales, the window plans W1-W3
    (``velox_tpu_torch/tpcds/window_plans.py``: the blocking window with
    every function and frame, the streaming window, which the optimizer
@@ -250,6 +251,18 @@ Phases (any failure ends the run with a nonzero exit code):
    page streams through the local and TCP exchange). A mismatch raises.
    One line a fuzzer: iterations, checked and skipped, the strategies
    run, seconds, host syncs and B1/B2 launches.
+20. (after phase 19) TPC-DS beyond the spec subset: phase 7's tables
+   dropped, the 24 tables of ``velox_tpu_torch.io.tpcds_full`` generated
+   at ``FULL_SF`` (0.3; seed 7, NULLs in keys, measures and attributes)
+   and registered twice from the same arrays, on the card and on the CPU
+   (``CPU_PREFIX``); each of the 84 ``FULL_QUERIES`` (``FULL_PARAMS``,
+   ``optimize_plans`` on) runs on the CPU copies and on the card, whose
+   result must equal the CPU's (integers, strings, dates, NULLs and row
+   order exactly, DOUBLE to rtol=1e-9; the tier-1 tests hold the CPU path
+   against the JAX package). One line a query: rows, host syncs, B1/B2
+   launches, first run, warm wall (median of 3, one run past 250 ms),
+   busy share, peak device memory and the CPU run's ms; the JSON line
+   carries them under ``tpcds_full``.
 
 It needs a CUDA card and the repository beside it; without either it
 exits nonzero and prints no result.
@@ -960,8 +973,9 @@ MORE_QUERIES = [2, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 19, 20,
 
 
 def check_result(got: dict, want: dict, what: str) -> None:
-    """Row for row: DOUBLE values to RTOL, everything else (decimals,
-    integers, dates, strings, NULLs) exactly."""
+    """Row for row: DOUBLE values to RTOL (a NaN equals a NaN, as
+    ``numpy.testing`` holds the tier-1 results), everything else
+    (decimals, integers, dates, strings, NULLs) exactly."""
     check(list(got) == list(want), f"{what}: columns {list(got)}")
     for c, wv in want.items():
         gv = got[c]
@@ -969,7 +983,8 @@ def check_result(got: dict, want: dict, what: str) -> None:
               f"{len(wv)}")
         for i, (g, w) in enumerate(zip(gv, wv)):
             if isinstance(w, float) and g is not None:
-                ok = abs(g - w) <= RTOL * abs(w)
+                ok = (g == w or abs(g - w) <= RTOL * abs(w)
+                      or (w != w and g != g))
             else:
                 ok = g == w
             check(ok, f"{what} {c} row {i}: {g!r}, want {w!r}")
@@ -3052,8 +3067,9 @@ def run_tpcds_queries(card: str, times: dict):
     numpy oracle (``velox_tpu_torch/tpcds/oracle.py``: integers, strings
     and row order exactly, DOUBLE to RTOL) in a run whose host syncs,
     B1/B2 launches and peak device memory are counted, then timed
-    (median of warm runs) and profiled once. Returns the generated
-    arrays and the counts and times per query."""
+    (median of warm runs) and profiled once. Before the first plan the
+    host oracles of this phase and of phase 8 run side by side. Returns
+    the counts and times per query and phase 8's oracles."""
     import torch
 
     from velox_tpu_torch.exec import run_plan
@@ -3061,6 +3077,7 @@ def run_tpcds_queries(card: str, times: dict):
     from velox_tpu_torch.io.tpcds import TABLES, tpcds_columns
     from velox_tpu_torch.tpcds import SPEC_QUERIES, tpcds_plan
     from velox_tpu_torch.tpcds.oracle import answer
+    from velox_tpu_torch.tpcds.window_plans import ORACLES, PLANS
     from velox_tpu_torch.utils.config import config
 
     t0 = time.perf_counter()
@@ -3081,13 +3098,17 @@ def run_tpcds_queries(card: str, times: dict):
         + ", ".join(f"{n} {get_table(n).num_rows}" for n in TABLES[:-1])
         + f"; device memory {torch.cuda.memory_allocated() / 2**30:.3f} "
         f"GiB")
+    ss_cols = tables["store_sales"]
+    jobs = {f"DS q{q}": (lambda q: lambda: answer(q, tables, dicts))(q)
+            for q in SPEC_QUERIES}
+    jobs.update({name: (lambda o: lambda: o(ss_cols))(ORACLES[name])
+                 for name in PLANS})
+    oracles = oracles_side_by_side(jobs, "phases 7 and 8")
     config.optimize_plans = True
     out = {}
     for q in SPEC_QUERIES:
-        t0 = time.perf_counter()
-        want = answer(q, tables, dicts)
-        log(f"DS q{q} oracle: {(time.perf_counter() - t0):.3f} s on the "
-            f"host")
+        want, oracle_s = oracles.pop(f"DS q{q}")
+        log(f"DS q{q} oracle: {oracle_s:.3f} s on the host")
         got, run = _peak_run(lambda: run_plan(tpcds_plan(q)))
         rows = len(next(iter(want.values())))
         if rows == 0:
@@ -3106,12 +3127,13 @@ def run_tpcds_queries(card: str, times: dict):
             f"{run['first_run_ms']} ms; peak device memory "
             f"{run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} above "
             f"the tables) on {card}")
-    return tables, out
+    return out, oracles
 
 
-def run_window_plans(store_sales, card: str, times: dict) -> dict:
+def run_window_plans(oracles: dict, card: str, times: dict) -> dict:
     """Phase 8: the window family at full width over the 28.8M-row
-    ``store_sales`` of phase 7 (``velox_tpu_torch/tpcds/window_plans.py``):
+    ``store_sales`` of phase 7 (``velox_tpu_torch/tpcds/window_plans.py``;
+    ``oracles``, ``{name: (result, seconds)}``, computed by phase 7):
     W1 the blocking window with every function and frame, W2 the
     streaming window (the optimizer must choose ``StreamingWindowNode``),
     W3 TopNRowNumber, RowNumber with a limit, MarkDistinct with a count,
@@ -3127,16 +3149,13 @@ def run_window_plans(store_sales, card: str, times: dict) -> dict:
     from velox_tpu_torch.plan.nodes import StreamingWindowNode
     from velox_tpu_torch.plan.optimizer import optimize_plan
     from velox_tpu_torch.tpcds.window_plans import (
-        ORACLES, PLANS, compare, result_arrays,
+        PLANS, compare, result_arrays,
     )
 
     node = optimize_plan(PLANS["W2"][0](PlanBuilder).build())
     check(type(node) is StreamingWindowNode,
           f"W2 runs as {type(node).__name__}, not StreamingWindowNode")
     log("W2: the optimizer chose StreamingWindowNode")
-    oracles = oracles_side_by_side(
-        {name: (lambda o: lambda: o(store_sales))(ORACLES[name])
-         for name in PLANS}, "phase 8")
     out = {}
     for name, (make, columns) in PLANS.items():
         want, oracle_s = oracles.pop(name)
@@ -3186,6 +3205,135 @@ def run_window_plans(store_sales, card: str, times: dict) -> dict:
         "W1 window spill", drain, lambda: host_rows(Task(plan)),
         lambda g, w: same_rows(g, w, ordered=True), card)
     return out
+
+
+# ------------------------------------------- TPC-DS, all 24 tables
+
+#: phase 20's scale (see ``run_tpcds_full``) and seed
+FULL_SF = 0.3
+FULL_SEED = 7
+#: the prefix of phase 20's CPU copies of the tables
+CPU_PREFIX = "cpu_"
+
+
+@contextlib.contextmanager
+def tables_from(prefix: str, names):
+    """Within the block each table name of ``names`` means the table
+    registered as ``prefix + name``: one plan, built inside, reads the
+    CPU copies, and its operators follow them to the CPU."""
+    from velox_tpu_torch.io import catalog
+
+    saved = {n: catalog.get_table(n) for n in names}
+    try:
+        for n in names:
+            catalog._TABLES[n] = catalog.get_table(prefix + n)
+        yield
+    finally:
+        catalog._TABLES.update(saved)
+
+
+def run_tpcds_full(card: str, times: dict) -> dict:
+    """Phase 20: phase 7's tables dropped, the 24 TPC-DS tables of
+    ``velox_tpu_torch.io.tpcds_full`` generated once at ``FULL_SF`` (seed
+    ``FULL_SEED``; NULLs in keys, measures and attributes) and registered
+    twice from the same arrays, on the card in splits of 2^23 rows and on
+    the CPU under ``CPU_PREFIX``. Under the default session config (as
+    the tier-1 tests run them) with ``optimize_plans`` on, each of the 84
+    ``FULL_QUERIES`` (with ``FULL_PARAMS``) runs on the CPU copies, then
+    on the card in a counted first run (host syncs, B1/B2 launches, peak
+    device memory) whose result must equal the CPU's (integers, strings,
+    dates, NULLs and row order exactly, DOUBLE to RTOL), then is timed
+    (median of 3 warm runs, one past 250 ms) and profiled once. The CPU
+    result is the reference here; the tier-1 tests hold the CPU path
+    against the JAX package. Returns the records by query."""
+    import dataclasses
+
+    import torch
+
+    from velox_tpu_torch.io.catalog import (
+        drop_table, get_table, register_columns,
+    )
+    from velox_tpu_torch.io.tpcds import TABLES as SPEC_TABLES
+    from velox_tpu_torch.io.tpcds_full import TABLES, float_view, generate_full
+    from velox_tpu_torch.tpcds import FULL_QUERIES
+    from velox_tpu_torch.utils.config import SessionConfig, config
+
+    for name in SPEC_TABLES:
+        drop_table(name)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data, dicts, nulls = generate_full(FULL_SF, FULL_SEED)
+    log(f"generated the 24 TPC-DS tables SF{FULL_SF} seed {FULL_SEED}: "
+        f"{(time.perf_counter() - t0):.3f} s")
+    t0 = time.perf_counter()
+    for name in TABLES:
+        cols = float_view(name, data.pop(name))
+        strings = {c: dicts[c] for c in cols if c in dicts}
+        for prefix, device in (("", "cuda"), (CPU_PREFIX, "cpu")):
+            register_columns(prefix + name, cols, strings, SPLIT_ROWS, None,
+                             device, nulls=nulls[name])
+    torch.cuda.synchronize()
+    log(f"registered the 24 tables on the card and on the CPU: "
+        f"{(time.perf_counter() - t0):.3f} s; "
+        + ", ".join(f"{n} {get_table(n).num_rows}" for n in TABLES)
+        + f"; device memory {torch.cuda.memory_allocated() / 2**30:.3f} "
+        f"GiB")
+    # the default session config, as the tier-1 tests run these plans
+    saved = dataclasses.asdict(config)
+    for f in dataclasses.fields(SessionConfig):
+        setattr(config, f.name, getattr(SessionConfig(), f.name))
+    config.optimize_plans = True
+    try:
+        out, cpu_total = _full_queries(card, times, TABLES)
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+    log(f"phase 20 CPU runs: {cpu_total / 1e3:.3f} s for "
+        f"{len(FULL_QUERIES)} queries")
+    for name in TABLES:
+        drop_table(name)
+        drop_table(CPU_PREFIX + name)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _full_queries(card: str, times: dict, tables) -> tuple:
+    """Phase 20's runs over the registered tables: the records by query
+    and the CPU runs' total ms."""
+    from velox_tpu_torch.exec import run_plan
+    from velox_tpu_torch.tpcds import (
+        FULL_EMPTY, FULL_PARAMS, FULL_QUERIES, tpcds_plan,
+    )
+
+    out = {}
+    cpu_total = 0.0
+    for q in FULL_QUERIES:
+        params = FULL_PARAMS.get(q, {})
+        t0 = time.perf_counter()
+        with tables_from(CPU_PREFIX, tables):
+            want = run_plan(tpcds_plan(q, **params))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        cpu_total += cpu_ms
+        got, run = _peak_run(lambda: run_plan(tpcds_plan(q, **params)))
+        check_result(got, want, f"DS full q{q}")
+        rows = len(next(iter(want.values())))
+        wall = wall_ms(lambda: run_plan(tpcds_plan(q, **params)), reps=3)
+        busy = device_breakdown(lambda: run_plan(tpcds_plan(q, **params)),
+                                f"ds_full_q{q}", wall, card, top=3)
+        times[f"ds_full_q{q}"] = wall
+        out[f"DS full q{q}"] = {**run, "wall_ms": wall, "busy_ms": busy,
+                                "busy_share": busy / wall, "rows": rows,
+                                "cpu_ms": cpu_ms}
+        log(f"DS full q{q}: {rows} rows equal to the CPU's"
+            + (" (empty on both, FULL_EMPTY at SF 0.01)"
+               if rows == 0 and q in FULL_EMPTY else "")
+            + f"; host syncs {run['syncs']}, launches B1 "
+            f"{run['grouped_sum_i32']} B2 {run['grouped_multi_sum_i32']}; "
+            f"first run {run['first_run_ms']} ms, warm wall {wall} ms, busy "
+            f"{busy} ms (share {busy / wall}); peak device memory "
+            f"{run['peak_gb']:.3f} GiB ({run['above_tables_gb']:.3f} above "
+            f"the tables); CPU run {cpu_ms} ms on {card}")
+    return out, cpu_total
 
 
 # ------------------------------------------------------------- main
@@ -3333,16 +3481,22 @@ def main() -> int:
 
     # 7. TPC-DS at SF10; 8. the window family over its store_sales
     t0 = time.perf_counter()
-    ds_tables, ds = run_tpcds_queries(card, times)
+    ds, window_oracles = run_tpcds_queries(card, times)
     log(f"phase 7 (TPC-DS): {(time.perf_counter() - t0):.3f} s")
     t0 = time.perf_counter()
-    windows = run_window_plans(ds_tables["store_sales"], card, times)
+    windows = run_window_plans(window_oracles, card, times)
     log(f"phase 8 (window plans): {(time.perf_counter() - t0):.3f} s")
 
     # 19. the fuzzers
     t0 = time.perf_counter()
     fuzz = run_fuzzers(card)
     log(f"phase 19 (fuzzers): {(time.perf_counter() - t0):.3f} s")
+
+    # 20. the 84 other TPC-DS queries over all 24 tables
+    t0 = time.perf_counter()
+    ds_full = run_tpcds_full(card, times)
+    log(f"phase 20 (TPC-DS, 24 tables, 84 queries): "
+        f"{(time.perf_counter() - t0):.3f} s")
 
     # report each kernel's launches in every query's checked run
     spill_runs = {}
@@ -3375,6 +3529,7 @@ def main() -> int:
     by_query.update(ds)
     by_query.update(windows)
     by_query.update({f"fuzz {k}": r for k, r in fuzz.items()})
+    by_query.update(ds_full)
     more_b2 = sum(r["grouped_multi_sum_i32"] for r in joins["more"].values())
     check(more_b2 > 0, "no query of phase 5 launched B2")
     kernels = [
@@ -3406,7 +3561,7 @@ def main() -> int:
                       "distributed": dist,
                       "rank_forms_ms": joins["rank_forms_ms"],
                       "tpcds_queries": ds, "window_plans": windows,
-                      "fuzzers": fuzz}))
+                      "fuzzers": fuzz, "tpcds_full": ds_full}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -208,3 +208,100 @@ def tpcds_in_both(sf: float = TPCDS_SF, batch_rows: int = BATCH_ROWS,
         for name in TABLES:
             jax_catalog.drop_table(prefix + name)
             torch_catalog.drop_table(prefix + name)
+
+
+#: seed of the 24-table generator (``velox_tpu_torch.io.tpcds_full``)
+TPCDS_FULL_SEED = 7
+
+
+def full_arrow_table(columns, dictionaries, nulls):
+    """One table of ``tpcds_full`` as an Arrow table for the JAX package:
+    strings decoded (code -1 NULL), dates as date32, every other column
+    masked by its NULL mask (money already in its float64 view)."""
+    arrays = {}
+    for c, v in columns.items():
+        if c in dictionaries:
+            values = np.asarray(list(dictionaries[c]) + [None], dtype=object)
+            arrays[c] = pa.array(values[v].tolist(), type=pa.string())
+        elif v.dtype == np.dtype("datetime64[D]"):
+            arrays[c] = pa.array(v.astype(np.int64).astype(np.int32),
+                                 type=pa.date32(), mask=nulls.get(c))
+        else:
+            arrays[c] = pa.array(v, mask=nulls.get(c))
+    return pa.table(arrays)
+
+
+@contextlib.contextmanager
+def tpcds_full_in_both(sf: float = TPCDS_SF, batch_rows: int = BATCH_ROWS,
+                       prefix: str = ""):
+    """Generate the 24 TPC-DS tables once (``tpcds_full``) and register
+    the same arrays in both catalogs under ``prefix``: the port's with
+    ``register_full`` on the CPU, the JAX package's through Arrow with
+    the same NULL masks. Yields ``(tables, dictionaries, nulls)`` as
+    registered (money in float64); drops every table afterwards."""
+    from velox_tpu_torch.io.tpcds_full import TABLES, register_full
+
+    tables, dictionaries, nulls = register_full(
+        sf, batch_rows, TPCDS_FULL_SEED, prefix, device="cpu")
+    try:
+        for name, cols in tables.items():
+            jax_catalog.register_arrow(
+                prefix + name,
+                full_arrow_table(cols, dictionaries, nulls[name]),
+                batch_rows)
+        yield tables, dictionaries, nulls
+    finally:
+        for name in TABLES:
+            jax_catalog.drop_table(prefix + name)
+            torch_catalog.drop_table(prefix + name)
+
+
+def full_queries_fixture():
+    """A module fixture for the test files of ``FULL_QUERIES``: the 24
+    tables in both catalogs at SF 0.01, and the JAX package's rows of a
+    query (with its ``FULL_PARAMS``), each computed once when first
+    asked for. The JAX package's compiled programs are dropped with the
+    tables, so one worker's files do not pile them up."""
+    import pytest
+
+    @pytest.fixture(scope="module")
+    def tpcds_full():
+        import jax
+
+        from velox_tpu.exec import run_plan as jax_run_plan
+        from velox_tpu.tpcds import tpcds_plan as jax_tpcds_plan
+        from velox_tpu_torch.tpcds import FULL_PARAMS
+
+        with tpcds_full_in_both():
+            rows = {}
+
+            def expected(q):
+                if q not in rows:
+                    plan = jax_tpcds_plan(q, **FULL_PARAMS.get(q, {}))
+                    rows[q] = jax_run_plan(plan.build()).to_pydict()
+                return rows[q]
+
+            yield expected
+        jax.clear_caches()
+
+    return tpcds_full
+
+
+def check_full_query(expected, q: int, monkeypatch) -> None:
+    """Query ``q`` of ``FULL_QUERIES`` through the port with
+    ``optimize_plans`` on and off, each equal to the JAX package's rows
+    (``assert_same``); it must select rows unless ``FULL_EMPTY`` names
+    it."""
+    from velox_tpu_torch.exec import run_plan as torch_run_plan
+    from velox_tpu_torch.tpcds import FULL_EMPTY, FULL_PARAMS, tpcds_plan
+
+    exp = expected(q)
+    rows = len(next(iter(exp.values())))
+    if q in FULL_EMPTY:
+        assert rows == 0, f"q{q} selects {rows} rows: take it off FULL_EMPTY"
+    else:
+        assert rows > 0, f"q{q} selects nothing"
+    for optimize in (True, False):
+        monkeypatch.setattr(torch_config, "optimize_plans", optimize)
+        got = torch_run_plan(tpcds_plan(q, **FULL_PARAMS.get(q, {})))
+        assert_same(got, exp, f"q{q} optimize_plans={optimize}")

@@ -2881,8 +2881,8 @@ class CrossProbeOp(Operator):
         super().__init__(node)
         if node.join_type != JoinType.INNER:
             raise NotImplementedError(
-                f"{node.join_type.value} nested-loop joins are not ported "
-                "to velox_tpu_torch yet")
+                f"nested-loop join type {node.join_type}: only INNER is "
+                "supported, as in the JAX package")
         self.bridge = bridge
         self._filter = (ExprEvaluator([node.filter], _join_filter_schema(node))
                         if node.filter is not None else None)

@@ -13,6 +13,9 @@ produces for the same data:
   lane ``decimal_lane_dtype`` picks when the table is registered);
 * table-global ``(min, max)`` stats on integer and date lanes, and the
   ``sorted_cols``/``unique_cols`` ordering facts the optimizer reads;
+* NULLs: string code -1, or a ``nulls`` mask for any other column (its
+  lane zero-filled, ``valid`` on the splits that hold a NULL, the
+  column's stats over its non-NULL values, no ordering facts);
 * long decimals (``shred_wide_decimals``): a DECIMAL(p > 18) column given
   as Python ints (``None`` is NULL) stays one int64 lane while every value
   fits int64, and otherwise becomes three signed-digit lanes
@@ -92,6 +95,9 @@ def _sorted_dictionary(codes: np.ndarray, values: Sequence[str]):
     decoded column followed by the JAX catalog's sort."""
     values = np.asarray(values, dtype=object)
     live = codes >= 0
+    if not live.any():
+        # an all-NULL column: an empty dictionary, as the JAX catalog's
+        return Dictionary([]), np.full(len(codes), -1, dtype=np.int32)
     used = np.bincount(codes[live], minlength=len(values)) > 0
     kept = np.nonzero(used)[0]
     order = np.argsort(values[kept].astype(str), kind="stable")
@@ -181,6 +187,23 @@ def shred_wide_decimals(columns: Mapping[str, np.ndarray],
     return out, overrides, nulls, wide
 
 
+def _null_masks(nulls, columns, dictionaries) -> Dict[str, np.ndarray]:
+    """The masks of ``register_columns``' ``nulls`` that hold a NULL,
+    checked against their columns (string columns say NULL by code -1)."""
+    out = {}
+    for c, mask in (nulls or {}).items():
+        mask = np.asarray(mask, dtype=bool)
+        if c not in columns:
+            raise KeyError(f"NULL mask for no column {c!r}")
+        if c in dictionaries:
+            raise ValueError(f"column {c}: a string column's NULL is code -1")
+        if mask.shape != np.shape(columns[c]):
+            raise ValueError(f"column {c}: NULL mask of shape {mask.shape}")
+        if mask.any():
+            out[c] = mask
+    return out
+
+
 def register_columns(
     name: str, columns: Mapping[str, np.ndarray],
     dictionaries: Optional[Mapping[str, Union[Sequence[str],
@@ -188,6 +211,7 @@ def register_columns(
     batch_rows: int = 1 << 20,
     decimal_overrides: Optional[Dict[str, tuple]] = None,
     device: Optional[Union[str, torch.device]] = None,
+    nulls: Optional[Mapping[str, np.ndarray]] = None,
 ) -> Table:
     """Ingest numpy columns as device splits of <= ``batch_rows`` rows.
 
@@ -196,16 +220,24 @@ def register_columns(
     maps integer columns to ``(precision, scale)``: the stored integers
     are unscaled decimals (cents); one given as an object array of Python
     ints may hold ``None`` (NULL) and values past int64
-    (``shred_wide_decimals``). ``device=None`` means the CUDA card;
-    without one this raises, and callers that want the CPU say so.
+    (``shred_wide_decimals``). ``nulls`` maps integer, float, DATE and
+    TIMESTAMP columns to a bool mask, True where the value is NULL: the
+    lane reads 0 there, as the JAX package's Arrow ingest zero-fills a
+    NULL, and the column takes no part in ``stats`` (its non-NULL
+    values only), ``sorted_cols`` or ``unique_cols``, as the JAX
+    catalog reads a column with NULLs. ``device=None`` means the CUDA
+    card; without one this raises, and callers that want the CPU say so.
     """
     dev = resolve_device(device)
     dictionaries = {k: (v.values if isinstance(v, Dictionary) else v)
                     for k, v in (dictionaries or {}).items()}
-    columns, decimal_overrides, nulls, wide_groups = shred_wide_decimals(
-        columns, dict(decimal_overrides or {}))
+    columns, decimal_overrides, shred_nulls, wide_groups = \
+        shred_wide_decimals(columns, dict(decimal_overrides or {}))
+    nulls = {**_null_masks(nulls, columns, dictionaries), **shred_nulls}
     names = list(columns)
     lanes = {n: _lane(np.asarray(columns[n])) for n in names}
+    for c, mask in nulls.items():
+        lanes[c] = np.where(mask, np.zeros((), lanes[c].dtype), lanes[c])
     lengths = {len(v) for v in lanes.values()}
     if len(lengths) != 1:
         raise ValueError(f"table {name}: columns differ in length")
@@ -226,10 +258,11 @@ def register_columns(
         t = types[c]
         if t.is_string or not (t.is_integer or t.kind == TypeKind.DATE):
             continue
-        if n:
-            stats[c] = (int(lanes[c].min()), int(lanes[c].max()))
+        live = lanes[c][~nulls[c]] if c in nulls else lanes[c]
+        if len(live):
+            stats[c] = (int(live.min()), int(live.max()))
     sorted_cols, unique_cols = _ordering_stats(
-        {c: lanes[c] for c in names}, types)
+        {c: lanes[c] for c in names if c not in nulls}, types)
     for c, (p, s) in decimal_overrides.items():
         types[c] = DecimalType(TypeKind.DECIMAL, p, s)
 
@@ -262,7 +295,9 @@ def register_columns(
                 # stay ascending through the tail, as at JAX ingest)
                 vals[rows:] = vals[rows - 1]
             valid = None
-            if c in nulls:
+            if c in nulls and nulls[c][start:start + rows].any():
+                # a valid mask on the splits that hold a NULL, as the
+                # JAX package's Arrow ingest sets one split by split
                 v = np.zeros(ccap, dtype=bool)
                 v[:rows] = ~nulls[c][start:start + rows]
                 valid = torch.from_numpy(v).to(dev)

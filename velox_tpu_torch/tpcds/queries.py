@@ -3157,9 +3157,58 @@ from velox_tpu_torch.tpcds.queries_hard import HARD_QUERIES as _HARD  # noqa: E4
 _QUERIES.update(_HARD)
 SUPPORTED_QUERIES = sorted(_QUERIES)
 
-#: the queries whose tables the spec-shaped generator makes
-#: (``velox_tpu_torch.io.tpcds``); the others read dsdgen-only tables
+#: the queries whose eight tables the spec-shaped generator makes
+#: (``velox_tpu_torch.io.tpcds``, numpy oracles in ``tpcds/oracle.py``)
 SPEC_QUERIES = [3, 7, 13, 19, 27, 28, 42, 43, 48, 52, 53, 55, 63, 65, 96]
+
+#: the other 84, over the 24 tables of ``velox_tpu_torch.io.tpcds_full``
+FULL_QUERIES = [q for q in SUPPORTED_QUERIES if q not in SPEC_QUERIES]
+
+#: ``tpcds_plan(n, **FULL_PARAMS[n])`` where the spec's constants select
+#: nothing at SF 0.01 of ``tpcds_full`` (seed 7); chosen only so that the
+#: query selects rows, and given to both packages alike
+FULL_PARAMS = {
+    # the 2001/2002 boundary week holds no web or catalog sale in 2001
+    2: {"year": 2000},
+    # 500 addresses over 200 zips: no zip holds 10 preferred customers
+    8: {"min_pref": 1},
+    # 28,804 store lines over 1,827 days: no item sells 5 times a day,
+    # and the best store customers bought nothing by catalog or web in
+    # the month
+    23: {"freq": 2, "pct": 0.5},
+    # the plan's own switch for tiny SF (no store zip is a customer's),
+    # and a market whose stores sold 'sky' items that came back
+    24: {"zip_match": False, "market_id": 2},
+    # manufacturer 977 makes none of the 300 items
+    32: {"manufact_id": 7},
+    # none of 677, 940, 694, 808 makes an item priced $68-98
+    37: {"manufact_ids": (230, 279, 410, 463)},
+    # the plan's own switch for tiny SF: no customer shares a store's
+    # county and state
+    54: {"geo_filter": False},
+    # no item sells in all three channels in the week of 2000-01-03, nor
+    # within 10% in the week of 2002-02-04
+    58: {"day": "2002-02-04", "tol": 1.0},
+    # week 1195 falls in 1922; 5166 is the first week of 1999
+    59: {"year_seq_lo": 5166},
+    # no item of the six colors priced $64-74 has such cross sales
+    64: {"price_lo": 0.0, "price_hi": 100.0},
+    # none of 129, 270, 821, 423 makes an item priced $62-92
+    82: {"manufact_ids": (37, 96, 230, 279)},
+    # manufacturer 350 makes no item discounted past 1.3x its average
+    92: {"manufact_id": 7},
+    # no multi-site web order shipped to IL in the window went unreturned
+    94: {"state": "GA"},
+}
+
+#: the queries of ``FULL_QUERIES`` that select no row at SF 0.01 even so
+#: (no constant of theirs helps): a customer buying in all three channels
+#: in two years running (q4), an item of the attribute disjunction (q41,
+#: about 1 in 8,000 items), an item returned in all three channels in
+#: three weeks (q83), a customer whose demographics a store return
+#: carries (q84: 2,880 returns over 1,920,800 demographics), a month of
+#: catalog returns by the demographic slice (q91)
+FULL_EMPTY = [4, 41, 83, 84, 91]
 
 
 def tpcds_plan(n: int, **params) -> PlanBuilder:
